@@ -7,8 +7,9 @@ kernels against their plain PyTorch versions.
 Phases (any failure raises and exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: nvcc builds the NMS kernels from ``yolo_scratch_tpu_torch/csrc``;
-3. kernels: each kernel against its plain version on seeded boxes
+2. build: nvcc builds the NMS and bottleneck libraries from
+   ``yolo_scratch_tpu_torch/csrc``, one nvcc per source, started together;
+3. kernels: each NMS kernel against its plain version on seeded boxes
    (exactly equal keep masks), with its time, the plain version's time and
    its bound at the main path's shape, and at N=2048;
 4. slice: YOLO11n at 640x640 (crater row ch=1/nc=5, COCO row ch=3/nc=80),
@@ -17,7 +18,18 @@ Phases (any failure raises and exits non-zero):
    (32, 300, 7) finite output; at conf 0 the Predictor's detections equal
    the same feats put through the plain sweep; ``postprocess`` at B=1
    (kernel #2) equals its plain version; the card's f32 forward equals the
-   CPU's on two images; img/s per row.
+   CPU's on two images; img/s per row;
+5. bottleneck (kernel #3), its counter zeroed before each path and read
+   after: (a) the probe's path, ``probe_fused_bottleneck.run_cases`` at its
+   six shapes, bf16, B=32, plus f32 cases at C=128 and C=512, each held
+   against ``bottleneck_plain`` within ``probe_fused_bottleneck.tolerance``;
+   (b) the folded-Bottleneck contract: one Predictor-shaped forward of the
+   folded bf16 YOLO11n (crater row, 640, B=32) with a hook on each of its 11
+   ``Bottleneck``s, whose inputs go through ``fused_bottleneck`` on
+   ``bottleneck_weights(module)`` and are held against the plain version
+   and, within 0.03 of max|ref|, the module's own output. Then times: the
+   kernel, the folded module on cuDNN (the library yardstick) and the plain
+   version at each shape, beside the bound.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -27,14 +39,15 @@ and exits 1.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from yolo_scratch_tpu_torch import probe_fused_bottleneck as P
 from yolo_scratch_tpu_torch.infer import (
     Predictor,
     PredictorConfig,
@@ -42,7 +55,8 @@ from yolo_scratch_tpu_torch.infer import (
     pack_detections,
 )
 from yolo_scratch_tpu_torch.models.builder import CONFIGS
-from yolo_scratch_tpu_torch.nn.modules import detect_decode
+from yolo_scratch_tpu_torch.nn.modules import Bottleneck, detect_decode
+from yolo_scratch_tpu_torch.ops import conv_kernels as CK
 from yolo_scratch_tpu_torch.ops import nms_kernels as K
 from yolo_scratch_tpu_torch.ops.decode import (
     _finish,
@@ -50,6 +64,7 @@ from yolo_scratch_tpu_torch.ops.decode import (
     postprocess,
     select_candidates,
 )
+from yolo_scratch_tpu_torch.utils.cuda_timing import kernel_ms, time_ms
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): HBM bytes/s and
 # f32 (non-tensor-core) FLOP/s. The NMS sweep is f32 compare/divide work.
@@ -70,7 +85,14 @@ KERNELS = {
         source="yolo_scratch_tpu_torch/csrc/nms_sweep.cu",
         replaces="yolo_scratch_tpu/ops/pallas_nms.py:27",
         symbol="nms_sweep_single_kernel", plain=K.nms_sweep_plain),
+    "fused_bottleneck": dict(
+        source="yolo_scratch_tpu_torch/csrc/fused_bottleneck.cu",
+        replaces="yolo_scratch_tpu/ops/pallas_conv.py:81",
+        symbol="fused_bottleneck_kernel", plain=CK.bottleneck_plain),
 }
+# kernel #3's row in the table: the probe's 80x80x128 bf16 shape at B=32
+BNECK_ROW = "p3_s_128"
+BNECK_F32 = [("f32_p3_128", 80, 128, 128), ("f32_p5_512", 20, 512, 512)]
 ROWS = [("crater", "yolo11_crater.json", 1, 5), ("coco", "yolo11_coco.json", 3, 80)]
 
 
@@ -95,47 +117,6 @@ def seeded_boxes(seed: int, shape, device) -> tuple[torch.Tensor, torch.Tensor]:
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
     valid = rng.rand(*shape) > 0.1
     return torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
-
-
-def kernel_ms(fn, kernel: str, reps: int = 50) -> float:
-    """Mean device time of one launch of the CUDA kernel whose symbol holds
-    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls of ``fn``.
-    The wrapper's host work is not in it (a launch ends before the next
-    call has been enqueued, so CUDA events would time the host)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    # the trace may drop an event or two of a window; average what it holds
-    seen = sum(e.count for e in rows)
-    if seen < reps // 2:
-        raise AssertionError(f"profiler saw {seen} of {reps} launches of {kernel}")
-    return sum(e.self_device_time_total for e in rows) / seen / 1e3
-
-
-def time_ms(fn, reps: int, windows: int = 5) -> float:
-    """Median over ``windows`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events: device time where the device is the bottleneck,
-    the host's launch time where it is not."""
-    fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(windows):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        per.append(start.elapsed_time(end) / reps)
-    return statistics.median(per)
 
 
 def bound(keep: torch.Tensor, n: int) -> tuple[float, str]:
@@ -179,7 +160,7 @@ def kernel_phase(dev) -> dict:
             f"yardstick")
         if shape[-1] == 512:  # the main path's K
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
+                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return results
 
 
@@ -302,6 +283,95 @@ def slice_phase(dev, ident: str) -> dict:
     return dict(main=main_launches, b1=b1_launches, rates=rates)
 
 
+def yolo11n_bottlenecks(dev) -> list:
+    """One Predictor-shaped forward of the folded bf16 YOLO11n (crater row,
+    640, B=32), with a hook capturing (module, input, output) of each
+    ``Bottleneck``."""
+    model = load_deploy_model(CONFIGS / "yolo11_crater.json", scale="n", ch=1, nc=5, seed=0,
+                              device=dev)
+    pred = Predictor(model, PredictorConfig(img_size=IMGSZ, batch_size=BATCH), device=dev)
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: seen.append((mod, inp[0], out)))
+             for m in pred.model.modules() if isinstance(m, Bottleneck)]
+    try:
+        x = np.random.RandomState(7).randint(0, 256, (BATCH, IMGSZ, IMGSZ, 1), dtype=np.uint8)
+        pred.forward_feats(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def bottleneck_phase(dev, ident: str) -> dict:
+    """Kernel #3 on the probe's path and on YOLO11n's bottlenecks."""
+    # (a) + (c): the probe's path, bf16 at the Predictor's batch, and f32
+    CK.reset_launches()
+    cases = P.run_cases(BATCH, torch.bfloat16, dev)
+    f32_cases = P.run_cases(BATCH, torch.float32, dev, shapes=BNECK_F32, seed=1)
+    torch.cuda.synchronize()
+    probe_launches = CK.launches["fused_bottleneck"]
+    log(f"bottleneck probe path (6 bf16 + 2 f32 shapes, B={BATCH}): launches {probe_launches}")
+    if probe_launches == 0:
+        raise AssertionError("the probe path never launched the bottleneck kernel")
+    for case in cases + f32_cases:
+        case.check()
+        x = case.inputs[0]
+        th, tw, smem = CK.tile_plan(*x.shape[1:], case.inputs[1].shape[-1], x.dtype)
+        log(f"bottleneck {case.name} {tuple(x.shape)} {x.dtype}: max|d| {case.err:.4g} "
+            f"(border {case.border_err():.4g}, rtol = atol = "
+            f"{P.tolerance(x.dtype, x.shape[-1]):.3g}); tile {th}x{tw}, {smem} B shared")
+
+    # (b): the folded-Bottleneck contract at YOLO11n's widths
+    CK.reset_launches()
+    seen = yolo11n_bottlenecks(dev)
+    contract = []  # (case, the module's own output, NHWC)
+    with torch.inference_mode():
+        for mod, xin, out in seen:
+            # a C2f bottleneck's input is a channel slice: NHWC needs a copy
+            x = xin.permute(0, 2, 3, 1).contiguous()
+            w = CK.bottleneck_weights(mod)
+            case = P.Case(f"yolo11n_{x.shape[-1]}@{x.shape[1]}", (x, *w),
+                          CK.fused_bottleneck(x, *w), CK.bottleneck_plain(x, *w))
+            contract.append((case, out.permute(0, 2, 3, 1)))
+    torch.cuda.synchronize()
+    contract_launches = CK.launches["fused_bottleneck"]
+    log(f"YOLO11n contract (folded crater n, 640, B={BATCH}): {len(seen)} bottlenecks, "
+        f"launches {contract_launches}")
+    if contract_launches == 0 or len(seen) != 11:
+        raise AssertionError(f"the contract launched the kernel {contract_launches} times "
+                             f"over {len(seen)} bottlenecks; want 11")
+    for case, module_out in contract:
+        case.check()
+        ref = module_out.float()
+        rel = P.max_abs(case.got, ref) / float(ref.abs().max())
+        log(f"bottleneck {case.name}: max|d| {case.err:.4g} vs plain (border "
+            f"{case.border_err():.4g}), {rel:.4g} of max|ref| vs the folded module (limit 0.03)")
+        if rel > 0.03:
+            raise AssertionError(f"{case.name}: kernel differs from the folded module by "
+                                 f"{rel:.3g} of max|ref|")
+
+    # times, after the counts were read
+    row = None
+    for case in cases + f32_cases:
+        t = P.time_case(case)
+        log(f"bottleneck {case.name} B={BATCH} {case.got.dtype}: kernel {t['ms']:.4f} ms, "
+            f"cuDNN folded module {t['library_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), {t['share']:.3f} of bound, "
+            f"on {ident}")
+        if case.name == BNECK_ROW:
+            row = dict(max_abs_err=case.err, **{k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    shapes = {}
+    for case, _ in contract:
+        shapes.setdefault(case.name, case)
+    for name, case in shapes.items():
+        t = P.time_case(case)
+        log(f"bottleneck {name} B={BATCH} bf16: kernel {t['ms']:.4f} ms, cuDNN folded module "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['share']:.3f} of bound")
+    return dict(row=row, launches=probe_launches + contract_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -314,16 +384,21 @@ def main() -> int:
     log(ident)
 
     t0 = time.perf_counter()
-    K.load_kernels()
-    log(f"build: NMS kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        for built in [pool.submit(K.load_kernels), pool.submit(CK.load_kernels)]:
+            built.result()
+    log(f"build: NMS and bottleneck kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     timed = kernel_phase(dev)
     sl = slice_phase(dev, ident)
+    bn = bottleneck_phase(dev, ident)
+    timed["fused_bottleneck"] = bn["row"]
 
     launches = {"nms_sweep_batched": sl["main"]["nms_sweep_batched"],
-                "nms_sweep": sl["b1"]["nms_sweep"]}
+                "nms_sweep": sl["b1"]["nms_sweep"], "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
-                  launches=launches[name], **timed[name], library_ms=None)
+                  launches=launches[name], **timed[name])
              for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

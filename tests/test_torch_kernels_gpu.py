@@ -1,6 +1,16 @@
-"""The port's CUDA NMS kernels against their plain PyTorch versions, on the
-card. Exact: keep masks are booleans and the kernels round every f32
-operation as the plain sweep does.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
+
+* NMS sweeps (kernels #1, #2): exact. Keep masks are booleans and the
+  kernels round every f32 operation as the plain sweep does.
+* Fused bottleneck (kernel #3): bf16 at rtol = atol = 0.05, the border rows
+  and columns also on their own (h is rounded to bf16 once; a sum in another
+  order can round it to the neighbouring value). f32 at rtol = atol = 1e-5
+  up to C = 128 (the JAX tests' tolerance) and 1e-5 * 9C / 1152 above (the
+  worst-case rounding of a sum grows with its 9C terms: 2e-5 at C = 256,
+  4e-5 at C = 512). The folded module: f32 at 2e-4 (TF32 off), bf16 within
+  0.03 of max|ref| (cuDNN rounds the conv output to bf16 before its bias and
+  SiLU; the kernel does not).
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -13,7 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
+from yolo_scratch_tpu_torch.nn.modules import Bottleneck
+from yolo_scratch_tpu_torch.ops import conv_kernels as CK
 from yolo_scratch_tpu_torch.ops import nms_kernels as K
+from yolo_scratch_tpu_torch.probe_fused_bottleneck import tolerance
 
 pytestmark = pytest.mark.gpu
 
@@ -21,7 +35,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the NMS kernels have no CPU mode")
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -80,3 +94,70 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
         n = 20000
         K._launch("nms_sweep_batched", torch.zeros((1, n, 4), device=cuda),
                   torch.ones((1, n), dtype=torch.bool, device=cuda), 0.45)
+
+
+# ----------------------------------------------------------- fused bottleneck
+
+def _bneck_inputs(seed, B, H, W, C, Ch, dtype, device):
+    rng = np.random.RandomState(seed)
+    arrs = [(rng.randn(B, H, W, C) * 0.5, dtype),
+            (rng.randn(3, 3, C, Ch) / np.sqrt(9 * C), dtype), (rng.randn(Ch) * 0.1, torch.float32),
+            (rng.randn(3, 3, Ch, C) / np.sqrt(9 * Ch), dtype), (rng.randn(C) * 0.1, torch.float32)]
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dt) for a, dt in arrs]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,W,C,Ch", [
+    (2, 12, 12, 16, 16), (1, 8, 24, 32, 32), (2, 20, 20, 64, 64), (2, 12, 12, 128, 64),
+    (3, 16, 16, 128, 128), (1, 7, 9, 32, 48), (1, 20, 20, 512, 512), (2, 40, 40, 256, 256)])
+def test_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, Ch):
+    inputs = _bneck_inputs(B * H + C, B, H, W, C, Ch, dtype, cuda)
+    before = CK.launches["fused_bottleneck"]
+    got = CK.fused_bottleneck(*inputs)
+    torch.cuda.synchronize()
+    assert CK.launches["fused_bottleneck"] == before + 1
+    assert got.dtype == dtype and got.shape == inputs[0].shape
+    ref = CK.bottleneck_plain(*inputs)
+    tol = tolerance(dtype, C)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    # conv2's zero pad of h: the first and last rows and columns on their own
+    for ends in ((slice(None), [0, -1]), (slice(None), slice(None), [0, -1])):
+        torch.testing.assert_close(got[ends].float(), ref[ends].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bottleneck_kernel_matches_folded_module(cuda, dtype):
+    torch.manual_seed(0)
+    m = Bottleneck(64, 64, shortcut=True, k=(3, 3), e=1.0)
+    for bn in (m.cv1.bn, m.cv2.bn):  # non-trivial statistics, so folding matters
+        bn.running_mean.uniform_(-0.1, 0.1)
+        bn.running_var.uniform_(0.5, 1.5)
+        bn.weight.data.uniform_(0.5, 1.5)
+        bn.bias.data.uniform_(-0.1, 0.1)
+    m = fuse_conv_bn(m.eval()).to(cuda, dtype).to(memory_format=torch.channels_last)
+    x = torch.rand(4, 64, 24, 40, device=cuda, dtype=dtype).to(memory_format=torch.channels_last)
+    with torch.inference_mode(), CK.full_f32():
+        ref = m(x).permute(0, 2, 3, 1).float()
+        got = CK.fused_bottleneck(x.permute(0, 2, 3, 1), *CK.bottleneck_weights(m)).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    else:
+        assert float((got - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+def test_bottleneck_wrapper_rejects_bad_input(cuda):
+    x, w1, b1, w2, b2 = _bneck_inputs(0, 1, 8, 8, 32, 32, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        CK._launch(x.half(), w1.half(), b1, w2.half(), b2)
+    with pytest.raises(TypeError):
+        CK._launch(x, w1.float(), b1, w2, b2)
+    with pytest.raises(TypeError):
+        CK._launch(x, w1, b1.bfloat16(), w2, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        CK._launch(x.transpose(1, 2), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        CK._launch(*_bneck_inputs(0, 1, 8, 8, 24, 24, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        CK._launch(*_bneck_inputs(0, 1, 4, 4, 2048, 2048, torch.bfloat16, cuda))
+    with pytest.raises(ValueError):
+        CK._launch(x, w1, b1.cpu(), w2, b2)

@@ -44,7 +44,9 @@ def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the NMS kernel library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_cuda_library("yst_nms", [_SOURCE])))
+        # -fmad=false: no a*b+c is contracted into an FMA, so the IoU rounds
+        # every operation as the plain sweep and XLA do (exact keep masks)
+        lib = ctypes.CDLL(str(build_cuda_library("yst_nms", [_SOURCE], ["-fmad=false"])))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.yst_nms_sweep_batched.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
         lib.yst_nms_sweep_batched.restype = i32

@@ -16,12 +16,11 @@ from typing import Sequence
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 
-# sm_90a keeps Hopper-only instructions available; -fmad=false stops nvcc
-# from contracting a*b+c into one FMA, so kernels round every operation as
-# the plain PyTorch versions (and the JAX reference) do.
+# sm_90a keeps Hopper-only instructions available. Whether nvcc may
+# contract a*b+c into one FMA is each library's choice (``extra_flags``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 
@@ -55,7 +54,9 @@ def compile_library(cmd: Sequence[str], out: Path, sources: Sequence[Path],
     return out
 
 
-def build_cuda_library(name: str, sources: Sequence[Path]) -> Path:
-    """nvcc ``sources`` into ``build/lib{name}.so`` (plain C interface)."""
-    return compile_library([find_nvcc(), *NVCC_FLAGS, *map(str, sources)],
+def build_cuda_library(name: str, sources: Sequence[Path],
+                       extra_flags: Sequence[str] = ()) -> Path:
+    """nvcc ``sources`` into ``build/lib{name}.so`` (plain C interface), with
+    ``extra_flags`` after the common ones."""
+    return compile_library([find_nvcc(), *NVCC_FLAGS, *extra_flags, *map(str, sources)],
                            BUILD_DIR / f"lib{name}.so", sources)
