@@ -26,13 +26,9 @@ from yolo_scratch_tpu.nn.modules import Bottleneck as FlaxBottleneck
 from yolo_scratch_tpu.ops.pallas_conv import bottleneck_xla
 from yolo_scratch_tpu.ops.pallas_conv import fused_bottleneck as jax_fused_bottleneck
 from yolo_scratch_tpu_torch import probe_fused_bottleneck as probe
-from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
+from yolo_scratch_tpu_torch.nn.fuse import bottleneck_weights, fuse_conv_bn
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck
-from yolo_scratch_tpu_torch.ops.conv_kernels import (
-    bottleneck_plain,
-    bottleneck_weights,
-    fused_bottleneck,
-)
+from yolo_scratch_tpu_torch.ops.conv_kernels import bottleneck_plain, fused_bottleneck
 from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
 
 
@@ -174,3 +170,21 @@ def test_probe_yardstick_and_bound():
     assert by == "bytes"
     assert ms == pytest.approx((2 * 32 * 160 * 160 * 16 * 2 + 2 * 9 * 16 * 16 * 2 + 4 * 32)
                                / 3.35e12 * 1e3)
+
+
+def test_probe_check_holds_small_maps():
+    """``Case.check`` scales its atol by max|plain| below 1: on a map of
+    values near 1e-3, zeros and x itself (a skipped branch) fail it, and an
+    output 1% off everywhere passes."""
+    (case,) = probe.run_cases(2, torch.bfloat16, "cpu", shapes=[("t", 6, 32, 32)])
+    x, w1, b1, w2, b2 = case.inputs
+    inputs = (x * 1e-3, w1, b1 * 1e-3, w2, b2 * 1e-3)
+    ref = bottleneck_plain(*inputs)
+    assert float(ref.float().abs().max()) < 0.05  # a flat atol of 0.05 would hold nothing
+    small = probe.Case("small", inputs, ref, ref)
+    assert small.atol < 1e-3
+    small.check()
+    assert small.passes((ref.float() * 1.01).bfloat16())
+    assert not small.passes(torch.zeros_like(ref)) and not small.passes(inputs[0])
+    with pytest.raises(AssertionError, match="differs"):
+        probe.Case("small", inputs, torch.zeros_like(ref), ref).check()

@@ -307,17 +307,4 @@ int yst_fused_bottleneck_f32(const void* x, const void* w1, const float* b1, con
   return launch<float, false>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, stream);
 }
 
-// The tile a launch on the current device would use: out = {th, tw, smem
-// bytes}. Returns 0, or cudaErrorInvalidValue when no tile fits.
-int yst_fused_bottleneck_plan(int h, int w, int c, int ch, int esize, int* out) {
-  Plan p;
-  if (c <= 0 || ch <= 0 || c % kFrag || ch % kFrag ||
-      !choose_plan(h, w, c, ch, esize, esize == 2, max_smem_optin(), &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = p.th;
-  out[1] = p.tw;
-  out[2] = static_cast<int>(p.smem);
-  return 0;
-}
-
 }  // extern "C"

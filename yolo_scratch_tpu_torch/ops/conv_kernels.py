@@ -1,14 +1,15 @@
-"""Fused residual bottleneck: a hand-written CUDA kernel, its plain version,
-and the bridge from a folded ``Bottleneck`` module (port of
-``ops/pallas_conv.py``).
+"""Fused residual bottleneck: a hand-written CUDA kernel and its plain
+version (port of ``ops/pallas_conv.py``).
 
 ==========================================  ====================================
 ``yolo_scratch_tpu/ops/pallas_conv.py``     here
 ==========================================  ====================================
 ``fused_bottleneck`` (kernel #3)            :func:`fused_bottleneck`
 ``bottleneck_xla``                          :func:`bottleneck_plain`
-(``fuse_conv_bn`` params, in its tests)     :func:`bottleneck_weights`
 ==========================================  ====================================
+
+``nn/fuse.py::bottleneck_weights`` reads a folded ``Bottleneck`` as this
+kernel's weights.
 
 The kernel lives in ``csrc/fused_bottleneck.cu`` (built with nvcc for sm_90a
 at first use, loaded with ctypes). :func:`fused_bottleneck` runs the kernel
@@ -22,14 +23,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from pathlib import Path
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from yolo_scratch_tpu_torch.nn.modules import Bottleneck
 from yolo_scratch_tpu_torch.utils.build import PKG, build_cuda_library
 
 _SOURCE = PKG / "csrc" / "fused_bottleneck.cu"
@@ -45,26 +42,19 @@ def reset_launches() -> None:
     launches["fused_bottleneck"] = 0
 
 
-def build_library(source: Path, name: str) -> ctypes.CDLL:
-    """Build ``source`` into ``build/lib{name}.so`` and load it. nvcc may
-    contract multiply-adds here: the kernel is held to a tolerance, and the
-    sums are FMAs."""
-    lib = ctypes.CDLL(str(build_cuda_library(name, [source])))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for sym in _SYMBOL.values():
-        fn = getattr(lib, sym)
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-        fn.restype = i32
-    lib.yst_fused_bottleneck_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
-    lib.yst_fused_bottleneck_plan.restype = i32
-    return lib
-
-
 def load_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the package's bottleneck kernel."""
+    """Build ``csrc/fused_bottleneck.cu`` into ``build/libyst_conv.so`` at
+    first use and load it. nvcc may contract multiply-adds here: the kernel
+    is held to a tolerance, and the sums are FMAs."""
     global _lib
     if _lib is None:
-        _lib = build_library(_SOURCE, "yst_conv")
+        lib = ctypes.CDLL(str(build_cuda_library("yst_conv", [_SOURCE])))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for sym in _SYMBOL.values():
+            fn = getattr(lib, sym)
+            fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+            fn.restype = i32
+        _lib = lib
     return _lib
 
 
@@ -113,17 +103,9 @@ def bottleneck_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
 
 # -------------------------------------------------------------------- kernel
 
-def tile_plan(H: int, W: int, C: int, Ch: int, dtype: torch.dtype) -> Tuple[int, int, int]:
-    """(TH, TW, shared-memory bytes) a launch on the current device uses;
-    raises ValueError for channel counts the kernel does not take."""
-    if dtype not in _SYMBOL:
-        raise TypeError(f"kernel takes bf16 or f32, got {dtype}")
-    out = (ctypes.c_int * 3)()
-    esize = torch.empty((), dtype=dtype).element_size()
-    if load_kernels().yst_fused_bottleneck_plan(H, W, C, Ch, esize, out):
-        raise ValueError(f"C={C}, Ch={Ch} ({dtype}): the kernel needs multiples of 16 that "
-                         "leave a tile within one block's shared memory")
-    return out[0], out[1], out[2]
+# cudaErrorInvalidValue: what the launch returns when no tile of these
+# channel counts fits in one block's shared memory
+_NO_TILE = 1
 
 
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -141,15 +123,19 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
         raise ValueError("kernel needs x 16-byte and the weights 32-byte aligned")
     B, H, W, C = x.shape
     Ch = w1.shape[-1]
+    if C % 16 or Ch % 16:
+        raise ValueError(f"kernel needs C and Ch in multiples of 16, got C={C}, Ch={Ch}")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        tile_plan(H, W, C, Ch, x.dtype)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         err = getattr(load_kernels(), _SYMBOL[x.dtype])(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             y.data_ptr(), B, H, W, C, Ch, stream)
+    if err == _NO_TILE:
+        raise ValueError(f"C={C}, Ch={Ch} ({x.dtype}): no tile fits within one block's "
+                         "shared memory")
     if err:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: cudaError {err}")
     launches["fused_bottleneck"] += 1
@@ -167,25 +153,3 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck: no kernel for device {x.device}")
     return _launch(x, w1, b1, w2, b2)
-
-
-# ------------------------------------------------------- folded module bridge
-
-def _conv3x3(cv: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
-    conv = cv.conv
-    if (conv.kernel_size != (3, 3) or conv.stride != (1, 1) or conv.padding != (1, 1)
-            or conv.dilation != (1, 1) or conv.groups != 1):
-        raise ValueError(f"kernel #3 takes 3x3 stride-1 SAME convs with groups 1, got {conv}")
-    if conv.bias is None or not isinstance(cv.bn, nn.Identity):
-        raise ValueError("fold the block's BatchNorm first (nn/fuse.py::fuse_conv_bn)")
-    if not isinstance(cv.act, nn.SiLU):
-        raise ValueError(f"kernel #3 applies SiLU, the block has {cv.act}")
-    return conv.weight.detach().permute(2, 3, 1, 0).contiguous(), conv.bias.detach().float()
-
-
-def bottleneck_weights(m: Bottleneck) -> Tuple[torch.Tensor, ...]:
-    """(w1, b1, w2, b2) of a folded ``Bottleneck`` with its shortcut on, for
-    :func:`fused_bottleneck`: weights HWIO in the module's type, biases f32."""
-    if not isinstance(m, Bottleneck) or not m.add:
-        raise ValueError("kernel #3 computes a Bottleneck with its shortcut on")
-    return (*_conv3x3(m.cv1), *_conv3x3(m.cv2))
