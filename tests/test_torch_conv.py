@@ -18,6 +18,7 @@ Tolerances are that file's:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,11 @@ from yolo_scratch_tpu.ops.pallas_conv import fused_bottleneck as jax_fused_bottl
 from yolo_scratch_tpu_torch import probe_fused_bottleneck as probe
 from yolo_scratch_tpu_torch.nn.fuse import bottleneck_weights, fuse_conv_bn
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck
-from yolo_scratch_tpu_torch.ops.conv_kernels import bottleneck_plain, fused_bottleneck
+from yolo_scratch_tpu_torch.ops.conv_kernels import (
+    bottleneck_plain,
+    fused_bottleneck,
+    weights_ohwi,
+)
 from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
 
 
@@ -74,6 +79,29 @@ def test_bottleneck_matches_jax_bf16():
         np.testing.assert_allclose(got, want, rtol=0.05, atol=0.05)
         for ends in ((slice(None), [0, -1]), (slice(None), slice(None), [0, -1])):
             np.testing.assert_allclose(got[ends], want[ends], rtol=0.05, atol=0.05)
+
+
+def _conv_taps(a, w_ohwi):
+    """3x3 SAME conv of NHWC ``a`` as nine shifted matmuls over OHWI weights
+    (N, 3, 3, K), the order the bf16 kernel reads them in."""
+    H, W = a.shape[1:3]
+    p = F.pad(a, (0, 0, 1, 1, 1, 1))
+    return sum(p[:, dy:dy + H, dx:dx + W] @ w_ohwi[:, dy, dx].T
+               for dy in range(3) for dx in range(3))
+
+
+@pytest.mark.parametrize("C,Ch", [(32, 32), (16, 48)])
+def test_weights_ohwi_taps_match_plain(C, Ch):
+    """The bottleneck rebuilt from :func:`weights_ohwi`'s layout, tap by tap,
+    equals ``bottleneck_plain`` in f32 (rtol = atol = 1e-5, sums in another
+    order)."""
+    _, (x, w1, b1, w2, b2) = _case(4, 2, 7, 9, C, Ch, jnp.float32)
+    w1o, w2o = weights_ohwi(w1), weights_ohwi(w2)
+    assert tuple(w1o.shape) == (Ch, 3, 3, C) and tuple(w2o.shape) == (C, 3, 3, Ch)
+    assert w1o.is_contiguous() and torch.equal(w1o[5, 2, 1], w1[2, 1, :, 5])
+    h = F.silu(_conv_taps(x, w1o) + b1)
+    y = x + F.silu(_conv_taps(h, w2o) + b2)
+    torch.testing.assert_close(y, bottleneck_plain(x, w1, b1, w2, b2), rtol=1e-5, atol=1e-5)
 
 
 def _perturbed(variables, seed=0):

@@ -107,7 +107,11 @@ def _bneck_inputs(seed, B, H, W, C, Ch, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,H,W,C,Ch", [
     (2, 12, 12, 16, 16), (1, 8, 24, 32, 32), (2, 20, 20, 64, 64), (2, 12, 12, 128, 64),
-    (3, 16, 16, 128, 128), (1, 7, 9, 32, 48), (1, 20, 20, 512, 512), (2, 40, 40, 256, 256)])
+    (3, 16, 16, 128, 128), (1, 7, 9, 32, 48), (1, 20, 20, 512, 512), (2, 40, 40, 256, 256),
+    # the wgmma path's edges: M not a multiple of 64 with a ragged last tile;
+    # N = 48 and N = 16 (C = 16: one k16 step per tap); four weight stages
+    # per tap (K = 256) on a ragged tile
+    (2, 13, 29, 64, 64), (1, 10, 11, 16, 48), (2, 9, 14, 48, 16), (1, 13, 17, 256, 256)])
 def test_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, Ch):
     inputs = _bneck_inputs(B * H + C, B, H, W, C, Ch, dtype, cuda)
     before = CK.launches["fused_bottleneck"]
@@ -155,7 +159,7 @@ def test_bottleneck_wrapper_rejects_bad_input(cuda):
         CK._launch(x.transpose(1, 2), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="multiples of 16"):
         CK._launch(*_bneck_inputs(0, 1, 8, 8, 24, 24, torch.bfloat16, cuda))
-    with pytest.raises(ValueError, match="shared memory"):
-        CK._launch(*_bneck_inputs(0, 1, 4, 4, 2048, 2048, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # a 5x5 x tile is 205 KB
+        CK._launch(*_bneck_inputs(0, 1, 4, 4, 4096, 16, torch.bfloat16, cuda))
     with pytest.raises(ValueError):
         CK._launch(x, w1, b1.cpu(), w2, b2)

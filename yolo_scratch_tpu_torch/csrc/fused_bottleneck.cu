@@ -3,95 +3,113 @@
 // Replaces the Pallas TPU kernel yolo_scratch_tpu/ops/pallas_conv.py::
 // _bneck_kernel (pallas_call at :122, entry fused_bottleneck). Bound in
 // Python by yolo_scratch_tpu_torch/ops/conv_kernels.py, which also holds the
-// plain PyTorch version (bottleneck_plain).
+// plain PyTorch version (bottleneck_plain) and the weight reorder
+// (weights_ohwi) the bf16 path reads.
 //
-// What it computes (x NHWC, weights HWIO, both convs 3x3 SAME stride 1, BN
-// folded into the f32 biases, every sum in f32):
+// What it computes (x NHWC, both convs 3x3 SAME stride 1, BN folded into the
+// f32 biases, every sum in f32):
 //   h = silu(conv3x3(x, w1) + b1), rounded to x's type once
 //   y = x + silu(conv3x3(h, w2) + b2), the residual added in f32, cast once
 // conv2's SAME padding pads h with zeros: an h position outside the image is
 // 0, not silu(b1 + a sum over x's zero pad).
 //
-// Design: one launch; a grid of (batch, tile rows, tile columns). A block
+// Both paths: one launch; a grid of (batch, tile rows, tile columns). A block
 // owns a TH x TW tile of y. It loads x on the tile plus a 2-pixel halo into
 // shared memory (zero outside the image), computes h on the tile plus a
 // 1-pixel halo into shared memory, then conv2, the residual from the x tile
 // already in shared memory, and the store. h never reaches device memory.
-// Both tiles are kept with one row pitch P = TW + 4, so pixel (r, c) of a
-// tile is row r*P + c of a (pixels x channels) matrix and tap (dy, dx) of a
-// conv is the same matrix shifted by dy*P + dx rows: each conv is nine
-// shifted (rows x K) x (K x N) products, an implicit GEMM with no im2col.
-// The rows whose column lies past the tile are computed and thrown away.
-// Weights are read from device memory, where they stay in L2. The tile
-// shape is chosen per call (choose_plan) to fit shared memory.
-//   bf16: tensor cores through nvcuda::wmma (16x16x16, bf16 in, f32 sums),
-//         one warp per 32x16 block of the product; tile rows of 64 bytes or
-//         more are padded by 32 bytes against bank conflicts.
-//   f32:  FFMA on CUDA cores (never TF32), one thread per 4 rows x 1 column.
+// The tile shape is chosen per call to fit shared memory.
 //
-// What bounds it on this card: at the probe's shapes the operations
-// (2*9*C*Ch per pixel and conv) over the tensor cores' rate; at YOLO11n's
-// narrow widths (C = 16..32) the bytes of x in and y out. This first kernel
-// is bound by neither (2-6% of the bound on an H100, PERF.md): the halo and
-// pitch rows cost 1.5-6x the useful work, and each warp waits on L2 for its
-// weight fragments (no TMA, no wgmma, no pipelining yet).
+// What bounds it on this card: at C >= 64 the operations (2*9*C*Ch per
+// pixel and conv) over the tensor cores' rate; at YOLO11n's narrow widths
+// (C = 16..32) the bytes of x in and y out.
+//
+// bf16 path (fused_bottleneck_kernel_bf16): two warpgroups issue Hopper's
+// wgmma (m64nNk16, bf16 in, f32 sums). Against the causes that held the
+// first (wmma) version to 2-7% of that bound:
+//   1. Pitch and halo rows. Both tiles are pixel-major, unswizzled, each
+//      pixel's row padded by 16 bytes (conflict-free ldmatrix). conv1's M is
+//      the (TH+2)(TW+2) h pixels and conv2's the TH*TW y pixels, each padded
+//      only to 64. A comes from registers: each lane of an ldmatrix.x4 gives
+//      the address of its own pixel's neighbour for the tap, so no row of a
+//      shared pitch is computed and thrown away.
+//   2. Weights from L2, fragment by fragment. The wrapper reorders each
+//      weight to (N, 3, 3, K), so a column's 9K values are contiguous; the
+//      block stages kStageBytes slices of them (all 9 taps' K, up to 64..512
+//      K-rows x N/pass columns) in shared memory by cp.async, double
+//      buffered, in wgmma's K-major no-swizzle core-matrix layout, and both
+//      warpgroups read each stage through one descriptor.
+//   3. Small products. wgmma m64nN (N = 16..128 per pass) replaces wmma's
+//      16x16x16; a warpgroup keeps kMbw 64-row blocks of sums in registers.
+//   4. Epilogue through scratch. The epilogues run from the accumulator
+//      registers (wgmma's layout gives each thread its rows and column
+//      pairs): conv1 writes silu(acc + b1) to the h tile as bf16 pairs,
+//      conv2 stores x + silu(acc + b2) as bf16 pairs.
+// Not done yet: TMA, warp specialisation, persistent blocks, a deeper
+// pipeline.
+//
+// f32 path (fused_bottleneck_kernel_f32): FFMA on CUDA cores (never TF32),
+// one thread per 4 rows x 1 column. Both tiles are kept with one row pitch
+// P = TW + 4, so pixel (r, c) of a tile is row r*P + c and tap (dy, dx) is
+// the same matrix shifted by dy*P + dx rows; the rows whose column lies past
+// the tile are computed and thrown away. Weights are read as HWIO from L2.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr size_t kDefaultSmem = 48 * 1024;  // without the opt-in attribute
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+int device_attr(cudaDeviceAttr attr) {
+  int device = 0, value = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&value, attr, device) != cudaSuccess)
+    return 0;
+  return value;
+}
+
+// ------------------------------------------------------------------ f32 path
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFrag = 16;                       // wmma tile edge
-constexpr int kRowsPerThread = 4;               // f32 path: rows per thread
-constexpr int kRowPad = 16;                     // bf16 path: values added to a long tile row
-constexpr size_t kDefaultSmem = 48 * 1024;      // without the opt-in attribute
+constexpr int kRowAlign = 16;                   // rows computed, in whole 16s
+constexpr int kRowsPerThread = 4;
 constexpr size_t kTwoBlocksSmem = 113 * 1024;   // two blocks per SM fit below this
 
 struct Plan {
   int th, tw;   // output tile
   int pitch;    // TW + 4: row pitch of the x and h tiles
-  int m1, m2;   // rows conv1 (h tile) and conv2 (y tile) compute, in whole 16s
+  int m1, m2;   // rows conv1 (h tile) and conv2 (y tile) compute
   int xrows;    // x tile rows: the last row conv1 reads is m1 - 1 + 2*pitch + 2
   int hrows;    // h tile rows, likewise for conv2
-  int xld, hld; // row strides of the x and h tiles, in values
   size_t smem;  // bytes of dynamic shared memory
 };
 
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-Plan make_plan(int th, int tw, int c, int ch, int esize, bool tensor_cores) {
+Plan make_plan(int th, int tw, int c, int ch) {
   Plan p;
   p.th = th;
   p.tw = tw;
   p.pitch = tw + 4;
-  p.m1 = round_up((th + 2) * p.pitch, kFrag);
-  p.m2 = round_up(th * p.pitch, kFrag);
+  p.m1 = round_up((th + 2) * p.pitch, kRowAlign);
+  p.m2 = round_up(th * p.pitch, kRowAlign);
   p.xrows = p.m1 + 2 * p.pitch + 2;
   p.hrows = p.m1 > p.m2 + 2 * p.pitch + 2 ? p.m1 : p.m2 + 2 * p.pitch + 2;
-  // A row stride of C values puts the rows of a wmma fragment in the same
-  // banks when C*2 bytes is a multiple of 64; 32 more bytes spread them over
-  // the banks (and keep wmma's 256-bit alignment). A 32-byte row (C = 16) is
-  // spread already. The f32 path reads one row per warp at a time.
-  auto ld = [&](int k) { return tensor_cores && k % 32 == 0 ? k + kRowPad : k; };
-  p.xld = ld(c);
-  p.hld = ld(ch);
-  p.smem = (static_cast<size_t>(p.xrows) * p.xld + static_cast<size_t>(p.hrows) * p.hld) * esize +
-           (tensor_cores ? kWarps * kFrag * kFrag * sizeof(float) : 0);
+  p.smem = (static_cast<size_t>(p.xrows) * c + static_cast<size_t>(p.hrows) * ch) * sizeof(float);
   return p;
 }
 
 // The tile with the fewest computed rows over the image (halo and pitch
 // rows included) among those whose shared memory lets two blocks share an
 // SM; failing that, among those that fit one block's limit.
-bool choose_plan(int h, int w, int c, int ch, int esize, bool tensor_cores, size_t max_smem,
-                 Plan* out) {
+bool choose_plan(int h, int w, int c, int ch, size_t max_smem, Plan* out) {
   const int tws[] = {28, 12, 4};
   const int ths[] = {16, 8, 4, 2, 1};
   const size_t limits[] = {kTwoBlocksSmem < max_smem ? kTwoBlocksSmem : max_smem, max_smem};
@@ -100,7 +118,7 @@ bool choose_plan(int h, int w, int c, int ch, int esize, bool tensor_cores, size
     long best = 0;
     for (int tw : tws) {
       for (int th : ths) {
-        const Plan p = make_plan(th, tw, c, ch, esize, tensor_cores);
+        const Plan p = make_plan(th, tw, c, ch);
         if (p.smem > limit) continue;
         const long work = static_cast<long>(cdiv(h, th)) * cdiv(w, tw) * (p.m1 + p.m2);
         if (!found || work < best) {
@@ -115,25 +133,13 @@ bool choose_plan(int h, int w, int c, int ch, int esize, bool tensor_cores, size
   return false;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
 // out[m][n] = sum over taps t = 3*dy + dx and k < k_in of
-//   in[(m + dy*pitch + dx) * ld + k] * w[(t * k_in + k) * n_out + n]
-// for m < rows, handed to epi(m, n, sum). f32 path: each thread sums
-// kRowsPerThread rows of one column; a warp's threads take neighbouring
-// columns, so weight loads coalesce and tile loads broadcast.
-template <typename T, typename Epi>
-__device__ void conv_cuda_cores(const T* in, int ld, const T* __restrict__ w, int rows, int k_in,
+//   in[(m + dy*pitch + dx) * k_in + k] * w[(t * k_in + k) * n_out + n]
+// for m < rows, handed to epi(m, n, sum). Each thread sums kRowsPerThread
+// rows of one column; a warp's threads take neighbouring columns, so weight
+// loads coalesce and tile loads broadcast.
+template <typename Epi>
+__device__ void conv_cuda_cores(const float* in, const float* __restrict__ w, int rows, int k_in,
                                 int n_out, int pitch, Epi epi) {
   const int items = rows / kRowsPerThread * n_out;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -141,12 +147,12 @@ __device__ void conv_cuda_cores(const T* in, int ld, const T* __restrict__ w, in
     const int m0 = item / n_out * kRowsPerThread;
     float acc[kRowsPerThread] = {};
     for (int t = 0; t < 9; ++t) {
-      const T* a = in + (m0 + (t / 3) * pitch + t % 3) * ld;
-      const T* wt = w + static_cast<size_t>(t) * k_in * n_out + n;
+      const float* a = in + (m0 + (t / 3) * pitch + t % 3) * k_in;
+      const float* wt = w + static_cast<size_t>(t) * k_in * n_out + n;
       for (int k = 0; k < k_in; ++k) {
-        const float wv = to_f(wt[static_cast<size_t>(k) * n_out]);
+        const float wv = wt[static_cast<size_t>(k) * n_out];
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(to_f(a[i * ld + k]), wv, acc[i]);
+        for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[i * k_in + k], wv, acc[i]);
       }
     }
 #pragma unroll
@@ -154,77 +160,29 @@ __device__ void conv_cuda_cores(const T* in, int ld, const T* __restrict__ w, in
   }
 }
 
-// The same product on tensor cores (bf16): one warp per (32 rows x 16
-// columns) unit, two accumulators sharing each weight fragment. Fragments
-// are staged through a per-warp 16x16 f32 scratch for the epilogue.
-template <typename Epi>
-__device__ void conv_tensor_cores(const bf16* in, int ld, const bf16* __restrict__ w, int rows,
-                                  int k_in, int n_out, int pitch, float* scratch, Epi epi) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mtiles = rows / kFrag, ntiles = n_out / kFrag;
-  const int units = cdiv(mtiles, 2) * ntiles;
-  float* sc = scratch + warp * kFrag * kFrag;
-  for (int unit = warp; unit < units; unit += kWarps) {
-    const int nt = unit % ntiles, mt = unit / ntiles * 2;
-    const bool two = mt + 1 < mtiles;  // uniform over the warp
-    wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-    for (int t = 0; t < 9; ++t) {
-      const bf16* a0 = in + (mt * kFrag + (t / 3) * pitch + t % 3) * ld;
-      const bf16* wt = w + static_cast<size_t>(t) * k_in * n_out + nt * kFrag;
-#pragma unroll 4
-      for (int k = 0; k < k_in; k += kFrag) {
-        wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major> b;
-        wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(b, wt + static_cast<size_t>(k) * n_out, n_out);
-        wmma::load_matrix_sync(a, a0 + k, ld);
-        wmma::mma_sync(acc[0], a, b, acc[0]);
-        if (two) {
-          wmma::load_matrix_sync(a, a0 + kFrag * ld + k, ld);
-          wmma::mma_sync(acc[1], a, b, acc[1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      if (f == 1 && !two) break;
-      wmma::store_matrix_sync(sc, acc[f], kFrag, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < kFrag * kFrag; e += 32)
-        epi((mt + f) * kFrag + e / kFrag, nt * kFrag + e % kFrag, sc[e]);
-      __syncwarp();
-    }
-  }
-}
-
-template <typename T, bool kTensorCores>
 __global__ void __launch_bounds__(kThreads)
-    fused_bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                            const float* __restrict__ b1, const T* __restrict__ w2,
-                            const float* __restrict__ b2, T* __restrict__ y, int H, int W, int C,
-                            int Ch, Plan p) {
+    fused_bottleneck_kernel_f32(const float* __restrict__ x, const float* __restrict__ w1,
+                                const float* __restrict__ b1, const float* __restrict__ w2,
+                                const float* __restrict__ b2, float* __restrict__ y, int H, int W,
+                                int C, int Ch, Plan p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* hs = xs + static_cast<size_t>(p.xrows) * p.xld;
-  float* scratch = reinterpret_cast<float*>(hs + static_cast<size_t>(p.hrows) * p.hld);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* hs = xs + static_cast<size_t>(p.xrows) * C;
   const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
 
   // x tile: row r is image pixel (y0 - 2 + r / P, x0 - 2 + r % P); zero
   // outside the image and past the tile's TH + 4 rows. 16-byte copies.
-  const int vec = C * static_cast<int>(sizeof(T)) / 16;
+  const int vec = C * static_cast<int>(sizeof(float)) / 16;
   for (int i = threadIdx.x; i < p.xrows * vec; i += blockDim.x) {
     const int r = i / vec, v = i % vec;
     const int ty = r / p.pitch, iy = y0 - 2 + ty, ix = x0 - 2 + r % p.pitch;
     int4 val = make_int4(0, 0, 0, 0);
     if (ty < p.th + 4 && iy >= 0 && iy < H && ix >= 0 && ix < W)
       val = reinterpret_cast<const int4*>(x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C)[v];
-    reinterpret_cast<int4*>(xs + r * p.xld)[v] = val;
+    reinterpret_cast<int4*>(xs + r * C)[v] = val;
   }
   // h rows past what conv1 writes feed only discarded outputs; keep them 0
-  for (int i = p.m1 * p.hld + threadIdx.x; i < p.hrows * p.hld; i += blockDim.x)
-    hs[i] = from_f<T>(0.0f);
+  for (int i = p.m1 * Ch + threadIdx.x; i < p.hrows * Ch; i += blockDim.x) hs[i] = 0.0f;
   __syncthreads();
 
   // conv1 -> h. Row m is image pixel (y0 - 1 + m / P, x0 - 1 + m % P); an h
@@ -233,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     const int hy = m / p.pitch, hx = m % p.pitch;
     const int iy = y0 - 1 + hy, ix = x0 - 1 + hx;
     const bool inside = hy < p.th + 2 && hx < p.tw + 2 && iy >= 0 && iy < H && ix >= 0 && ix < W;
-    hs[m * p.hld + n] = from_f<T>(inside ? silu(acc + b1[n]) : 0.0f);
+    hs[m * Ch + n] = inside ? silu(acc + b1[n]) : 0.0f;
   };
   // conv2 -> y. Row m is image pixel (y0 + m / P, x0 + m % P); its residual
   // is x tile row m + 2*P + 2.
@@ -241,40 +199,440 @@ __global__ void __launch_bounds__(kThreads)
     const int oy = m / p.pitch, ox = m % p.pitch;
     const int iy = y0 + oy, ix = x0 + ox;
     if (oy < p.th && ox < p.tw && iy < H && ix < W) {
-      const float res = to_f(xs[(m + 2 * p.pitch + 2) * p.xld + n]);
-      y[((static_cast<size_t>(b) * H + iy) * W + ix) * C + n] = from_f<T>(res + silu(acc + b2[n]));
+      const float res = xs[(m + 2 * p.pitch + 2) * C + n];
+      y[((static_cast<size_t>(b) * H + iy) * W + ix) * C + n] = res + silu(acc + b2[n]);
     }
   };
 
-  if constexpr (kTensorCores) {
-    conv_tensor_cores(xs, p.xld, w1, p.m1, C, Ch, p.pitch, scratch, h_out);
-    __syncthreads();
-    conv_tensor_cores(hs, p.hld, w2, p.m2, Ch, C, p.pitch, scratch, y_out);
-  } else {
-    conv_cuda_cores(xs, p.xld, w1, p.m1, C, Ch, p.pitch, h_out);
-    __syncthreads();
-    conv_cuda_cores(hs, p.hld, w2, p.m2, Ch, C, p.pitch, y_out);
+  conv_cuda_cores(xs, w1, p.m1, C, Ch, p.pitch, h_out);
+  __syncthreads();
+  conv_cuda_cores(hs, w2, p.m2, Ch, C, p.pitch, y_out);
+}
+
+// ----------------------------------------------------------------- bf16 path
+
+constexpr int kWarpgroups = 2;
+constexpr int kTcThreads = 128 * kWarpgroups;
+constexpr int kStageBytes = 16 * 1024;  // one weight stage (at most)
+constexpr int kPixPad = 8;              // bf16 values (16 bytes) after each tile pixel's row
+
+// A warpgroup holds kMbw 64-row blocks x NB columns of f32 sums (<= 64
+// registers a thread); a stage holds kStageK K-rows x NB columns.
+template <int NB>
+struct Cfg {
+  static constexpr int kMbw = NB >= 128 ? 1 : NB == 64 ? 2 : 4;
+  static constexpr int kStageK = kStageBytes / (NB * 2);
+};
+
+struct TilePlan {
+  int th, tw;    // output tile
+  int xw, hw;    // pixel widths of the x tile (TW + 4) and the h tile (TW + 2)
+  int m1, m2;    // h pixels (TH + 2)(TW + 2), y pixels TH * TW
+  int xld, hld;  // values a tile pixel's row takes: C + 8, Ch + 8
+  int h_off;     // byte offsets of the h tile and of the two weight stages
+  int w_off;
+  int stage;     // bytes of one weight stage
+  size_t smem;   // bytes of dynamic shared memory
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes < 16 fills the rest with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every cp.async of this thread has landed, and is visible to wgmma (async proxy)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses to r across the asm around it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a K-major, unswizzled B tile: core matrices of 8
+// columns x 16 bytes (8 K values), 128 contiguous bytes each; the next core
+// matrix along K 128 bytes on (LBO), the next 8 columns `sbo` bytes on (SBO).
+// Fields (cute/atom/mma_traits_sm90_gmma.hpp, GmmaDescriptor): start address
+// >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, layout 0 (no
+// swizzle) in 62-63.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(128 >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// d += A (64 x 16, this thread's fragment in a) * B (16 x N, descriptor):
+// wgmma.mma_async m64nNk16, bf16 in, f32 sums, A from registers, B K-major.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// One 3x3 conv of the block's tile as an implicit GEMM on wgmma:
+//   out[m][n] = sum over t < 9, k < K of in[pix(m) + tap(t)][k] * w[n][t][k]
+// for output pixel m < M of a grid out_w wide, whose pixel in the input tile
+// (in_w wide, ld values a pixel) is pix(m) = (m / out_w) * in_w + m % out_w,
+// and tap(t) = (t / 3) * in_w + t % 3. w is (N, 9, K): column n's 9K values
+// (K' below) are contiguous, so a stage is a run of K' for NB columns, and a
+// k16 step lies within one tap (K is a multiple of 16). Sums go to
+// epi(m, n, v[n], v[n + 1]).
+//
+// Loop: for each NB-column pass, each round of kWarpgroups * kMbw 64-row
+// blocks, each stage: wait for the stage, start loading the next one into
+// the other buffer, then per k16 step ldmatrix A (each lane its pixel's
+// neighbour for the tap; rows past M repeat row M - 1) and issue wgmma.
+// A is double-buffered in registers across k16 steps.
+template <int NB, typename Epi>
+__device__ __forceinline__ void conv_wgmma(const bf16* tile, int ld, int in_w, int out_w, int M,
+                                           int K, int N, const bf16* __restrict__ w, bf16* stages,
+                                           int stage_bytes, Epi epi) {
+  constexpr int kMbw = Cfg<NB>::kMbw;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int kk = 9 * K;                                 // K' of one column
+  const int stage_k = min(Cfg<NB>::kStageK, kk);        // K' a stage holds
+  const int groups_k = stage_k / 8;                     // core matrices along K' a stage holds
+  const uint32_t sbo = groups_k * 128;
+  const int nstage = cdiv(kk, stage_k);
+  const int mblocks = cdiv(M, 64);
+  const int nround = cdiv(mblocks, kWarpgroups * kMbw);
+  const int total = N / NB * nround * nstage;
+  const uint32_t tile_addr = smem_addr(tile), stage_addr = smem_addr(stages);
+
+  // stage idx: K' [s * stage_k, +stage_k) of columns [np * NB, +NB) into
+  // buffer idx & 1; core matrix (n / 8, g) at byte (n / 8 * groups_k + g) * 128
+  auto load_stage = [&](int idx) {
+    const int s = idx % nstage, np = idx / (nround * nstage);
+    const int k0 = s * stage_k, groups = min(stage_k, kk - k0) / 8;
+    const uint32_t dst = stage_addr + (idx & 1) * stage_bytes;
+    const bf16* src = w + static_cast<size_t>(np) * NB * kk + k0;
+    for (int i = tid; i < NB * groups; i += kTcThreads) {
+      const int n = i / groups, g = i % groups;
+      cp_async16(dst + ((n / 8) * groups_k + g) * 128 + (n % 8) * 16,
+                 src + static_cast<size_t>(n) * kk + g * 8, 16);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kMbw][NB / 2];
+  uint32_t a[2][kMbw][4];
+  int row_off[kMbw];  // byte offset in the tile of this lane's A row pixel, per block
+
+  load_stage(0);
+  for (int idx = 0; idx < total; ++idx) {
+    const int s = idx % nstage, round = idx / nstage % nround, np = idx / (nround * nstage);
+    cp_async_wait_all();
+    __syncthreads();  // stage idx landed for all; all are done with buffer (idx + 1) & 1
+    if (idx + 1 < total) load_stage(idx + 1);
+
+    const int mb0 = (round * kWarpgroups + wg) * kMbw;  // this warpgroup's first block
+    const int nvalid = max(0, min(kMbw, mblocks - mb0));
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < kMbw; ++i) {
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) acc[i][j] = 0.0f;
+        const int row = min((mb0 + i) * 64 + warp * 16 + lane % 16, M - 1);
+        row_off[i] = ((row / out_w) * in_w + row % out_w) * ld * 2;
+      }
+    }
+    if (nvalid > 0) {
+      const int k0 = s * stage_k, steps = min(stage_k, kk - k0) / 16;
+      const uint32_t b0 = stage_addr + (idx & 1) * stage_bytes;
+      // k16 step `step` of this stage with A registers ab
+      auto mma_step = [&](uint32_t (&ab)[kMbw][4], int step) {
+        const int kq = k0 + step * 16, t = kq / K, k = kq - t * K;
+        const uint32_t off =
+            tile_addr + (((t / 3) * in_w + t % 3) * ld + k + (lane / 16) * 8) * 2;
+        wgmma_wait<1>();  // the wgmmas that last read ab are done
+#pragma unroll
+        for (int i = 0; i < kMbw; ++i)
+          if (i < nvalid) ldmatrix_x4(ab[i], off + row_off[i]);
+        wgmma_fence();
+        const uint64_t desc = b_desc(b0 + step * 256, sbo);
+#pragma unroll
+        for (int i = 0; i < kMbw; ++i)
+          if (i < nvalid) wgmma<NB>(acc[i], ab[i], desc);
+        wgmma_commit();
+      };
+      for (int step = 0; step < steps; step += 2) {
+        mma_step(a[0], step);
+        if (step + 1 < steps) mma_step(a[1], step + 1);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kMbw; ++i) fence_regs(acc[i]);
+
+      if (s == nstage - 1) {
+        // accumulator layout: d[4j + 2h + e] is row 16 * warp + lane / 4 + 8h,
+        // column 8j + 2 * (lane % 4) + e of the 64 x NB block
+#pragma unroll
+        for (int i = 0; i < kMbw; ++i) {
+          if (i >= nvalid) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = (mb0 + i) * 64 + warp * 16 + lane / 4 + 8 * h;
+            if (m >= M) continue;
+#pragma unroll
+            for (int j = 0; j < NB / 8; ++j)
+              epi(m, np * NB + 8 * j + 2 * (lane % 4), acc[i][4 * j + 2 * h],
+                  acc[i][4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
   }
 }
 
-size_t max_smem_optin() {
-  int device = 0, optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-          cudaSuccess)
-    return 0;
-  return static_cast<size_t>(optin);
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    fused_bottleneck_kernel_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                                 const float* __restrict__ b1, const bf16* __restrict__ w2,
+                                 const float* __restrict__ b2, bf16* __restrict__ y, int H, int W,
+                                 int C, int Ch, TilePlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* hs = reinterpret_cast<bf16*>(smem + p.h_off);
+  bf16* stages = reinterpret_cast<bf16*>(smem + p.w_off);
+  const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
+
+  // x tile: pixel r is image pixel (y0 - 2 + r / xw, x0 - 2 + r % xw), zero
+  // outside the image. cp.async, committed with conv1's first weight stage.
+  const int vec = C / 8;
+  const uint32_t xs_addr = smem_addr(xs);
+  for (int i = threadIdx.x; i < (p.th + 4) * p.xw * vec; i += kTcThreads) {
+    const int r = i / vec, v = i % vec;
+    const int iy = y0 - 2 + r / p.xw, ix = x0 - 2 + r % p.xw;
+    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const bf16* src = inside ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + v * 8 : x;
+    cp_async16(xs_addr + (r * p.xld + v * 8) * 2, src, inside ? 16 : 0);
+  }
+
+  // conv1 -> h. h pixel m is image pixel (y0 - 1 + m / hw, x0 - 1 + m % hw);
+  // one outside the image is conv2's zero pad.
+  auto h_out = [&](int m, int n, float v0, float v1) {
+    const int iy = y0 - 1 + m / p.hw, ix = x0 - 1 + m % p.hw;
+    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    *reinterpret_cast<__nv_bfloat162*>(hs + m * p.hld + n) =
+        inside ? __floats2bfloat162_rn(silu(v0 + b1[n]), silu(v1 + b1[n + 1]))
+               : __floats2bfloat162_rn(0.0f, 0.0f);
+  };
+  // conv2 -> y. y pixel m is image pixel (y0 + m / TW, x0 + m % TW); its
+  // residual is x tile pixel (m / TW + 2, m % TW + 2).
+  auto y_out = [&](int m, int n, float v0, float v1) {
+    const int oy = m / p.tw, ox = m % p.tw, iy = y0 + oy, ix = x0 + ox;
+    if (iy < H && ix < W) {
+      const float2 res = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + ((oy + 2) * p.xw + ox + 2) * p.xld + n));
+      *reinterpret_cast<__nv_bfloat162*>(y + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + n) =
+          __floats2bfloat162_rn(res.x + silu(v0 + b2[n]), res.y + silu(v1 + b2[n + 1]));
+    }
+  };
+
+  conv_wgmma<NB>(xs, p.xld, p.xw, p.hw, p.m1, C, Ch, w1, stages, p.stage, h_out);
+  __syncthreads();  // h complete before conv2 reads it; conv1's stages free
+  conv_wgmma<NB>(hs, p.hld, p.hw, p.tw, p.m2, Ch, C, w2, stages, p.stage, y_out);
 }
 
-template <typename T, bool kTensorCores>
-int launch(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-           void* y, int batch, int h, int w, int c, int ch, void* stream) {
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || ch <= 0 || c % kFrag || ch % kFrag)
+TilePlan make_tile(int th, int tw, int c, int ch, int nb) {
+  TilePlan p;
+  p.th = th;
+  p.tw = tw;
+  p.xw = tw + 4;
+  p.hw = tw + 2;
+  p.m1 = (th + 2) * (tw + 2);
+  p.m2 = th * tw;
+  p.xld = c + kPixPad;
+  p.hld = ch + kPixPad;
+  const int stage_k = kStageBytes / (nb * 2);
+  const int kk = 9 * (c > ch ? c : ch);
+  p.stage = (stage_k < kk ? stage_k : kk) * nb * 2;
+  p.h_off = (th + 4) * p.xw * p.xld * 2;
+  p.w_off = round_up(p.h_off + p.m1 * p.hld * 2, 128);
+  p.smem = static_cast<size_t>(p.w_off) + 2 * p.stage;
+  return p;
+}
+
+// The tile with the least tensor-core work per SM: waves of blocks over the
+// SMs times the rows a block computes (each conv's M padded to 64). Ties go
+// to the tile that lets more blocks share an SM (one's loads overlap
+// another's products), then to fewer rows in all.
+bool choose_tile(int batch, int h, int w, int c, int ch, int nb, int regs, TilePlan* out) {
+  const size_t max_smem = static_cast<size_t>(device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
+  const long sm_smem = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  const long sms = device_attr(cudaDevAttrMultiProcessorCount);
+  if (max_smem == 0 || sm_smem == 0 || sms == 0) return false;
+  const long by_regs = 65536 / (static_cast<long>(round_up(regs, 8)) * kTcThreads);
+  bool found = false;
+  long best_cost = 0, best_share = 0, best_rows = 0;
+  for (int th = 1; th <= (h < 64 ? h : 64); ++th) {
+    for (int tw = 1; tw <= (w < 64 ? w : 64); ++tw) {
+      const TilePlan p = make_tile(th, tw, c, ch, nb);
+      if (p.smem > max_smem) continue;
+      const long blocks = static_cast<long>(batch) * cdiv(h, th) * cdiv(w, tw);
+      const long rows = round_up(p.m1, 64) + round_up(p.m2, 64);
+      const long cost = (blocks + sms - 1) / sms * rows;
+      long share = sm_smem / (static_cast<long>(p.smem) + 1024);
+      share = share < by_regs ? share : by_regs;
+      if (!found || cost < best_cost ||
+          (cost == best_cost && (share > best_share ||
+                                 (share == best_share && blocks * rows < best_rows)))) {
+        *out = p;
+        best_cost = cost;
+        best_share = share;
+        best_rows = blocks * rows;
+        found = true;
+      }
+    }
+  }
+  return found;
+}
+
+template <int NB>
+int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+                void* y, int batch, int h, int w, int c, int ch, cudaStream_t stream) {
+  auto kernel = fused_bottleneck_kernel_bf16<NB>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TilePlan p;
+  if (!choose_tile(batch, h, w, c, ch, NB, attr.numRegs, &p))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p.smem > kDefaultSmem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(batch, cdiv(h, p.th), cdiv(w, p.tw));
+  kernel<<<grid, kTcThreads, p.smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
+      b2, static_cast<bf16*>(y), h, w, c, ch, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int batch, int h, int w, int c, int ch) {
+  return batch <= 0 || h <= 0 || w <= 0 || c <= 0 || ch <= 0 || c % 16 || ch % 16;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, y (batch, h, w, c) NHWC bf16, 16-byte aligned; w1 (ch, 3, 3, c) and w2
+// (c, 3, 3, ch) bf16 in OHWI order (conv_kernels.weights_ohwi of the HWIO
+// weights), 16-byte aligned; b1 (ch,), b2 (c,) f32. c and ch are multiples
+// of 16. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue when no tile fits in one block's shared memory).
+int yst_fused_bottleneck_bf16(const void* x, const void* w1, const float* b1, const void* w2,
+                              const float* b2, void* y, int batch, int h, int w, int c, int ch,
+                              void* stream) {
+  if (bad_shape(batch, h, w, c, ch)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // columns per pass: the widest of 128/64/32/16 that divides both widths
+  const int both = c | ch;
+  if (both % 128 == 0) return launch_bf16<128>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, s);
+  if (both % 64 == 0) return launch_bf16<64>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, s);
+  if (both % 32 == 0) return launch_bf16<32>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, s);
+  return launch_bf16<16>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, s);
+}
+
+// The same in f32 with HWIO weights, w1 (3, 3, c, ch) and w2 (3, 3, ch, c).
+int yst_fused_bottleneck_f32(const void* x, const void* w1, const float* b1, const void* w2,
+                             const float* b2, void* y, int batch, int h, int w, int c, int ch,
+                             void* stream) {
+  if (bad_shape(batch, h, w, c, ch)) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  if (!choose_plan(h, w, c, ch, sizeof(T), kTensorCores, max_smem_optin(), &p))
+  if (!choose_plan(h, w, c, ch, static_cast<size_t>(
+                       device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin)), &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_bottleneck_kernel<T, kTensorCores>;
+  auto kernel = fused_bottleneck_kernel_f32;
   if (p.smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
@@ -282,29 +640,9 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2, const
   }
   const dim3 grid(batch, cdiv(h, p.th), cdiv(w, p.tw));
   kernel<<<grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2,
-      static_cast<T*>(y), h, w, c, ch, p);
+      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), b2, static_cast<float*>(y), h, w, c, ch, p);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" {
-
-// x, y (batch, h, w, c) NHWC; w1 (3, 3, c, ch), w2 (3, 3, ch, c) HWIO, all
-// contiguous, in x's type (x and y 16-byte aligned, weights 32-byte
-// aligned); b1 (ch,), b2 (c,) f32. c and ch are multiples of 16. Returns the
-// cudaError_t of the launch (0 on success).
-int yst_fused_bottleneck_bf16(const void* x, const void* w1, const float* b1, const void* w2,
-                              const float* b2, void* y, int batch, int h, int w, int c, int ch,
-                              void* stream) {
-  return launch<bf16, true>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, stream);
-}
-
-int yst_fused_bottleneck_f32(const void* x, const void* w1, const float* b1, const void* w2,
-                             const float* b2, void* y, int batch, int h, int w, int c, int ch,
-                             void* stream) {
-  return launch<float, false>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, stream);
 }
 
 }  // extern "C"

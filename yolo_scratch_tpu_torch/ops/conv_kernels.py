@@ -9,7 +9,8 @@ version (port of ``ops/pallas_conv.py``).
 ==========================================  ====================================
 
 ``nn/fuse.py::bottleneck_weights`` reads a folded ``Bottleneck`` as this
-kernel's weights.
+kernel's weights. The bf16 kernel reads them in the order
+:func:`weights_ohwi` gives, which the wrapper makes once per call.
 
 The kernel lives in ``csrc/fused_bottleneck.cu`` (built with nvcc for sm_90a
 at first use, loaded with ctypes). :func:`fused_bottleneck` runs the kernel
@@ -103,6 +104,13 @@ def bottleneck_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
 
 # -------------------------------------------------------------------- kernel
 
+def weights_ohwi(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, K, N) -> OHWI (N, 3, 3, K), contiguous: the layout the bf16
+    kernel reads. Column n's nine taps of K inputs are then one contiguous
+    run, which the kernel stages in shared memory K-major for wgmma."""
+    return w.permute(3, 0, 1, 2).contiguous()
+
+
 # cudaErrorInvalidValue: what the launch returns when no tile of these
 # channel counts fits in one block's shared memory
 _NO_TILE = 1
@@ -128,6 +136,8 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    if x.dtype == torch.bfloat16:
+        w1, w2 = weights_ohwi(w1), weights_ohwi(w2)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         err = getattr(load_kernels(), _SYMBOL[x.dtype])(
