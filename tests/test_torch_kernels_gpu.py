@@ -159,7 +159,7 @@ def test_bottleneck_wrapper_rejects_bad_input(cuda):
         CK._launch(x.transpose(1, 2), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="multiples of 16"):
         CK._launch(*_bneck_inputs(0, 1, 8, 8, 24, 24, torch.bfloat16, cuda))
-    with pytest.raises(ValueError, match="shared memory"):  # a 5x5 x tile is 205 KB
-        CK._launch(*_bneck_inputs(0, 1, 4, 4, 4096, 16, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # a 5x5 x tile is 410 KB
+        CK._launch(*_bneck_inputs(0, 1, 4, 4, 8192, 16, torch.bfloat16, cuda))
     with pytest.raises(ValueError):
         CK._launch(x, w1, b1.cpu(), w2, b2)

@@ -69,6 +69,10 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
+// The bf16 path's SiLU: the MUFU exponential and reciprocal (a few ulp of
+// f32, far below bf16's rounding; for v << 0, v * rcp(inf) = -0)
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
+
 int device_attr(cudaDeviceAttr attr) {
   int device = 0, value = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
@@ -213,15 +217,15 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kWarpgroups = 2;
 constexpr int kTcThreads = 128 * kWarpgroups;
-constexpr int kStageBytes = 16 * 1024;  // one weight stage (at most)
-constexpr int kPixPad = 8;              // bf16 values (16 bytes) after each tile pixel's row
+constexpr int kStageK = 64;  // K'-rows of a weight stage, at most (48 when 64 does not divide 9K)
+constexpr int kRing = 3;     // weight stage buffers: one being loaded, two read by wgmma
+constexpr int kPixPad = 8;   // bf16 values (16 bytes) after each tile pixel's row
 
-// A warpgroup holds kMbw 64-row blocks x NB columns of f32 sums (<= 64
-// registers a thread); a stage holds kStageK K-rows x NB columns.
+// A warpgroup holds kMbw 64-row blocks x NB columns of f32 sums (128
+// registers a thread at NB >= 32, 64 at NB = 16).
 template <int NB>
 struct Cfg {
-  static constexpr int kMbw = NB >= 128 ? 1 : NB == 64 ? 2 : 4;
-  static constexpr int kStageK = kStageBytes / (NB * 2);
+  static constexpr int kMbw = NB >= 128 ? 2 : NB >= 32 ? 4 : 8;
 };
 
 struct TilePlan {
@@ -229,8 +233,9 @@ struct TilePlan {
   int xw, hw;    // pixel widths of the x tile (TW + 4) and the h tile (TW + 2)
   int m1, m2;    // h pixels (TH + 2)(TW + 2), y pixels TH * TW
   int xld, hld;  // values a tile pixel's row takes: C + 8, Ch + 8
-  int h_off;     // byte offsets of the h tile and of the two weight stages
+  int h_off;     // byte offsets of the h tile, the weight stages and the tap table
   int w_off;
+  int t_off;
   int stage;     // bytes of one weight stage
   size_t smem;   // bytes of dynamic shared memory
 };
@@ -249,9 +254,11 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// every cp.async of this thread has landed, and is visible to wgmma (async proxy)
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+// all but this thread's N newest cp.async groups have landed, and are
+// visible to wgmma (async proxy)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\nfence.proxy.async.shared::cta;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
@@ -261,7 +268,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() {
+// wgmma.fence, with the descriptors d computed before it: ptxas serialises
+// the wgmmas when anything but a wgmma defines their inputs after the fence
+template <int S>
+__device__ __forceinline__ void wgmma_fence(const uint64_t (&d)[S]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) asm volatile("" ::"l"(d[i]));
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
@@ -356,119 +368,173 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// The wgmmas of one weight stage (S k16 steps) for a warpgroup's first V
+// 64-row blocks: every A fragment (ldmatrix, each lane its pixel's
+// neighbour for the step's tap, tap_off[step] bytes on from its pixel) and
+// descriptor is ready before the fence, then S * V wgmmas and one commit.
+// The caller waits before it reuses the registers or the stage. V and S are
+// compile-time, so no wgmma sits in a branch.
+template <int NB, int V, int S, int MBW>
+__device__ __forceinline__ void mma_stage(float (&acc)[MBW][NB / 2], const int (&row_off)[MBW],
+                                          uint32_t a_addr, const int* tap_off, uint32_t b_addr) {
+  uint32_t a[S][V][4];
+  uint64_t desc[S];
+#pragma unroll
+  for (int step = 0; step < S; ++step) {
+    const uint32_t off = a_addr + tap_off[step];
+#pragma unroll
+    for (int i = 0; i < V; ++i) ldmatrix_x4(a[step][i], off + row_off[i]);
+    desc[step] = b_desc(b_addr + step * 256, S * 256);
+  }
+  wgmma_fence(desc);
+#pragma unroll
+  for (int step = 0; step < S; ++step) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) wgmma<NB>(acc[i], a[step][i], desc[step]);
+  }
+  wgmma_commit();
+}
+
+// mma_stage for the warpgroup's nvalid (1..V) blocks
+template <int NB, int V, int S, int MBW>
+__device__ __forceinline__ void mma_stage_n(int nvalid, float (&acc)[MBW][NB / 2],
+                                            const int (&row_off)[MBW], uint32_t a_addr,
+                                            const int* tap_off, uint32_t b_addr) {
+  if constexpr (V > 1) {
+    if (nvalid < V) {
+      mma_stage_n<NB, V - 1, S>(nvalid, acc, row_off, a_addr, tap_off, b_addr);
+      return;
+    }
+  }
+  mma_stage<NB, V, S>(acc, row_off, a_addr, tap_off, b_addr);
+}
+
 // One 3x3 conv of the block's tile as an implicit GEMM on wgmma:
 //   out[m][n] = sum over t < 9, k < K of in[pix(m) + tap(t)][k] * w[n][t][k]
 // for output pixel m < M of a grid out_w wide, whose pixel in the input tile
 // (in_w wide, ld values a pixel) is pix(m) = (m / out_w) * in_w + m % out_w,
 // and tap(t) = (t / 3) * in_w + t % 3. w is (N, 9, K): column n's 9K values
-// (K' below) are contiguous, so a stage is a run of K' for NB columns, and a
-// k16 step lies within one tap (K is a multiple of 16). Sums go to
-// epi(m, n, v[n], v[n + 1]).
+// (K' below) are contiguous, so a stage is a run of S * 16 K' for NB
+// columns (S = 4 where 64 divides K, else 3: either divides 9K), and a k16
+// step lies within one tap (K is a multiple of 16). Rows past M repeat row
+// M - 1; sums go to epi(m, n, v[n], v[n + 1]).
 //
 // Loop: for each NB-column pass, each round of kWarpgroups * kMbw 64-row
-// blocks, each stage: wait for the stage, start loading the next one into
-// the other buffer, then per k16 step ldmatrix A (each lane its pixel's
-// neighbour for the tap; rows past M repeat row M - 1) and issue wgmma.
-// A is double-buffered in registers across k16 steps.
-template <int NB, typename Epi>
+// blocks, each stage: wait for the stage and pass the barrier, start
+// loading stage + 1 into the buffer of stage - 2 (cp.async), wait for the
+// previous stage's wgmmas (so the barrier, the loads and the index work
+// overlap them), and issue this stage's. A round's epilogue runs after the
+// wait that ends it.
+template <int NB, int S, typename Epi>
 __device__ __forceinline__ void conv_wgmma(const bf16* tile, int ld, int in_w, int out_w, int M,
                                            int K, int N, const bf16* __restrict__ w, bf16* stages,
-                                           int stage_bytes, Epi epi) {
-  constexpr int kMbw = Cfg<NB>::kMbw;
+                                           int stage_bytes, int* tap_off, Epi epi) {
+  static_assert(kRing == 3, "the loop loads one stage ahead into the buffer of stage - 2");
+  constexpr int kMbw = Cfg<NB>::kMbw, kGroups = S * 2;  // 16-byte groups of a column in a stage
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
   const int kk = 9 * K;                                 // K' of one column
-  const int stage_k = min(Cfg<NB>::kStageK, kk);        // K' a stage holds
-  const int groups_k = stage_k / 8;                     // core matrices along K' a stage holds
-  const uint32_t sbo = groups_k * 128;
-  const int nstage = cdiv(kk, stage_k);
+  const int nstage = kk / (S * 16);
   const int mblocks = cdiv(M, 64);
   const int nround = cdiv(mblocks, kWarpgroups * kMbw);
   const int total = N / NB * nround * nstage;
-  const uint32_t tile_addr = smem_addr(tile), stage_addr = smem_addr(stages);
+  const uint32_t a_addr = smem_addr(tile) + (lane / 16) * 16, stage_addr = smem_addr(stages);
 
-  // stage idx: K' [s * stage_k, +stage_k) of columns [np * NB, +NB) into
-  // buffer idx & 1; core matrix (n / 8, g) at byte (n / 8 * groups_k + g) * 128
-  auto load_stage = [&](int idx) {
-    const int s = idx % nstage, np = idx / (nround * nstage);
-    const int k0 = s * stage_k, groups = min(stage_k, kk - k0) / 8;
-    const uint32_t dst = stage_addr + (idx & 1) * stage_bytes;
-    const bf16* src = w + static_cast<size_t>(np) * NB * kk + k0;
-    for (int i = tid; i < NB * groups; i += kTcThreads) {
-      const int n = i / groups, g = i % groups;
-      cp_async16(dst + ((n / 8) * groups_k + g) * 128 + (n % 8) * 16,
-                 src + static_cast<size_t>(n) * kk + g * 8, 16);
+  // byte offset from a pixel's row to its neighbour's channels for each k16
+  // step; read after the loop's first barrier
+  for (int q = tid; q < kk / 16; q += kTcThreads) {
+    const int t = q * 16 / K, k = q * 16 - t * K;
+    tap_off[q] = (((t / 3) * in_w + t % 3) * ld + k) * 2;
+  }
+
+  // stage `loaded` (K' [ls * S * 16, +S * 16) of columns [lnp * NB, +NB))
+  // into buffer loaded % kRing; core matrix (n / 8, g) at byte (n / 8 *
+  // kGroups + g) * 128. One cp.async group per call; past the last stage an
+  // empty one.
+  int loaded = 0, ls = 0, lround = 0, lnp = 0;
+  auto load_next = [&]() {
+    if (loaded < total) {
+      const uint32_t dst = stage_addr + (loaded % kRing) * stage_bytes;
+      const bf16* src = w + static_cast<size_t>(lnp) * NB * kk + ls * S * 16;
+      for (int i = tid; i < NB * kGroups; i += kTcThreads) {
+        const int n = i / kGroups, g = i % kGroups;
+        cp_async16(dst + ((n / 8) * kGroups + g) * 128 + (n % 8) * 16,
+                   src + static_cast<size_t>(n) * kk + g * 8, 16);
+      }
+      if (++ls == nstage) {
+        ls = 0;
+        if (++lround == nround) lround = 0, ++lnp;
+      }
     }
     cp_async_commit();
+    ++loaded;
   };
 
   float acc[kMbw][NB / 2];
-  uint32_t a[2][kMbw][4];
   int row_off[kMbw];  // byte offset in the tile of this lane's A row pixel, per block
+  int s = 0, round = 0, np = 0;       // the stage about to be issued
+  int nvalid = 0, mb0 = 0, n0 = 0;     // the round in the registers: blocks, first block, column
 
-  load_stage(0);
+  // accumulator layout: d[4j + 2h + e] is row 16 * warp + lane / 4 + 8h,
+  // column 8j + 2 * (lane % 4) + e of the 64 x NB block
+  auto epilogue = [&]() {
+#pragma unroll
+    for (int i = 0; i < kMbw; ++i) fence_regs(acc[i]);
+#pragma unroll
+    for (int i = 0; i < kMbw; ++i) {
+      if (i >= nvalid) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mb0 + i) * 64 + warp * 16 + lane / 4 + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j)
+          epi(m, n0 + 8 * j + 2 * (lane % 4), acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
+      }
+    }
+  };
+
+  load_next();
   for (int idx = 0; idx < total; ++idx) {
-    const int s = idx % nstage, round = idx / nstage % nround, np = idx / (nround * nstage);
-    cp_async_wait_all();
-    __syncthreads();  // stage idx landed for all; all are done with buffer (idx + 1) & 1
-    if (idx + 1 < total) load_stage(idx + 1);
-
-    const int mb0 = (round * kWarpgroups + wg) * kMbw;  // this warpgroup's first block
-    const int nvalid = max(0, min(kMbw, mblocks - mb0));
+    cp_async_wait<0>();
+    __syncthreads();  // stage idx landed for all; all are done with stage idx - 2's buffer
+    load_next();      // stage idx + 1
+    wgmma_wait<0>();  // stage idx - 1's wgmmas: their registers are free
     if (s == 0) {
+      if (idx > 0) epilogue();  // of the round that stage idx - 1 ended
+      mb0 = (round * kWarpgroups + wg) * kMbw;  // this warpgroup's first block
+      nvalid = max(0, min(kMbw, mblocks - mb0));
+      n0 = np * NB;
 #pragma unroll
       for (int i = 0; i < kMbw; ++i) {
 #pragma unroll
         for (int j = 0; j < NB / 2; ++j) acc[i][j] = 0.0f;
+        fence_regs(acc[i]);
         const int row = min((mb0 + i) * 64 + warp * 16 + lane % 16, M - 1);
         row_off[i] = ((row / out_w) * in_w + row % out_w) * ld * 2;
       }
     }
-    if (nvalid > 0) {
-      const int k0 = s * stage_k, steps = min(stage_k, kk - k0) / 16;
-      const uint32_t b0 = stage_addr + (idx & 1) * stage_bytes;
-      // k16 step `step` of this stage with A registers ab
-      auto mma_step = [&](uint32_t (&ab)[kMbw][4], int step) {
-        const int kq = k0 + step * 16, t = kq / K, k = kq - t * K;
-        const uint32_t off =
-            tile_addr + (((t / 3) * in_w + t % 3) * ld + k + (lane / 16) * 8) * 2;
-        wgmma_wait<1>();  // the wgmmas that last read ab are done
-#pragma unroll
-        for (int i = 0; i < kMbw; ++i)
-          if (i < nvalid) ldmatrix_x4(ab[i], off + row_off[i]);
-        wgmma_fence();
-        const uint64_t desc = b_desc(b0 + step * 256, sbo);
-#pragma unroll
-        for (int i = 0; i < kMbw; ++i)
-          if (i < nvalid) wgmma<NB>(acc[i], ab[i], desc);
-        wgmma_commit();
-      };
-      for (int step = 0; step < steps; step += 2) {
-        mma_step(a[0], step);
-        if (step + 1 < steps) mma_step(a[1], step + 1);
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < kMbw; ++i) fence_regs(acc[i]);
-
-      if (s == nstage - 1) {
-        // accumulator layout: d[4j + 2h + e] is row 16 * warp + lane / 4 + 8h,
-        // column 8j + 2 * (lane % 4) + e of the 64 x NB block
-#pragma unroll
-        for (int i = 0; i < kMbw; ++i) {
-          if (i >= nvalid) break;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = (mb0 + i) * 64 + warp * 16 + lane / 4 + 8 * h;
-            if (m >= M) continue;
-#pragma unroll
-            for (int j = 0; j < NB / 8; ++j)
-              epi(m, np * NB + 8 * j + 2 * (lane % 4), acc[i][4 * j + 2 * h],
-                  acc[i][4 * j + 2 * h + 1]);
-          }
-        }
-      }
+    if (nvalid > 0)
+      mma_stage_n<NB, kMbw, S>(nvalid, acc, row_off, a_addr, tap_off + s * S,
+                               stage_addr + (idx % kRing) * stage_bytes);
+    if (++s == nstage) {
+      s = 0;
+      if (++round == nround) round = 0, ++np;
     }
   }
+  wgmma_wait<0>();
+  epilogue();  // of the last round
+}
+
+// conv_wgmma with its steps per stage: 4 where 64 divides K, else 3
+template <int NB, typename Epi>
+__device__ __forceinline__ void conv_wgmma_k(const bf16* tile, int ld, int in_w, int out_w,
+                                             int M, int K, int N, const bf16* __restrict__ w,
+                                             bf16* stages, int stage_bytes, int* tap_off,
+                                             Epi epi) {
+  if (K % 64 == 0)
+    conv_wgmma<NB, 4>(tile, ld, in_w, out_w, M, K, N, w, stages, stage_bytes, tap_off, epi);
+  else
+    conv_wgmma<NB, 3>(tile, ld, in_w, out_w, M, K, N, w, stages, stage_bytes, tap_off, epi);
 }
 
 template <int NB>
@@ -481,6 +547,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* hs = reinterpret_cast<bf16*>(smem + p.h_off);
   bf16* stages = reinterpret_cast<bf16*>(smem + p.w_off);
+  int* tap_off = reinterpret_cast<int*>(smem + p.t_off);
   const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
 
   // x tile: pixel r is image pixel (y0 - 2 + r / xw, x0 - 2 + r % xw), zero
@@ -501,7 +568,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int iy = y0 - 1 + m / p.hw, ix = x0 - 1 + m % p.hw;
     const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
     *reinterpret_cast<__nv_bfloat162*>(hs + m * p.hld + n) =
-        inside ? __floats2bfloat162_rn(silu(v0 + b1[n]), silu(v1 + b1[n + 1]))
+        inside ? __floats2bfloat162_rn(silu_fast(v0 + b1[n]), silu_fast(v1 + b1[n + 1]))
                : __floats2bfloat162_rn(0.0f, 0.0f);
   };
   // conv2 -> y. y pixel m is image pixel (y0 + m / TW, x0 + m % TW); its
@@ -512,13 +579,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const float2 res = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(xs + ((oy + 2) * p.xw + ox + 2) * p.xld + n));
       *reinterpret_cast<__nv_bfloat162*>(y + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + n) =
-          __floats2bfloat162_rn(res.x + silu(v0 + b2[n]), res.y + silu(v1 + b2[n + 1]));
+          __floats2bfloat162_rn(res.x + silu_fast(v0 + b2[n]), res.y + silu_fast(v1 + b2[n + 1]));
     }
   };
 
-  conv_wgmma<NB>(xs, p.xld, p.xw, p.hw, p.m1, C, Ch, w1, stages, p.stage, h_out);
-  __syncthreads();  // h complete before conv2 reads it; conv1's stages free
-  conv_wgmma<NB>(hs, p.hld, p.hw, p.tw, p.m2, Ch, C, w2, stages, p.stage, y_out);
+  conv_wgmma_k<NB>(xs, p.xld, p.xw, p.hw, p.m1, C, Ch, w1, stages, p.stage, tap_off, h_out);
+  __syncthreads();  // h complete before conv2 reads it; conv1's stages and table free
+  conv_wgmma_k<NB>(hs, p.hld, p.hw, p.tw, p.m2, Ch, C, w2, stages, p.stage, tap_off, y_out);
 }
 
 TilePlan make_tile(int th, int tw, int c, int ch, int nb) {
@@ -531,43 +598,55 @@ TilePlan make_tile(int th, int tw, int c, int ch, int nb) {
   p.m2 = th * tw;
   p.xld = c + kPixPad;
   p.hld = ch + kPixPad;
-  const int stage_k = kStageBytes / (nb * 2);
-  const int kk = 9 * (c > ch ? c : ch);
-  p.stage = (stage_k < kk ? stage_k : kk) * nb * 2;
+  p.stage = kStageK * nb * 2;
   p.h_off = (th + 4) * p.xw * p.xld * 2;
   p.w_off = round_up(p.h_off + p.m1 * p.hld * 2, 128);
-  p.smem = static_cast<size_t>(p.w_off) + 2 * p.stage;
+  p.t_off = p.w_off + kRing * p.stage;
+  p.smem = static_cast<size_t>(p.t_off) + 9 * (c > ch ? c : ch) / 16 * sizeof(int);
   return p;
 }
 
-// The tile with the least tensor-core work per SM: waves of blocks over the
-// SMs times the rows a block computes (each conv's M padded to 64). Ties go
-// to the tile that lets more blocks share an SM (one's loads overlap
-// another's products), then to fewer rows in all.
-bool choose_tile(int batch, int h, int w, int c, int ch, int nb, int regs, TilePlan* out) {
+// Modelled cycles of one conv of a block on its SM. For each round of up
+// to kWarpgroups * mbw 64-row blocks, each stage of each nb-column pass
+// costs the larger of the tensor cores' time for the round's blocks (an
+// m64nNk16 takes N / 2 cycles at the dense bf16 rate) and a fixed overhead
+// (barrier, loads, ldmatrix); the epilogue costs per value it writes.
+constexpr double kStageCycles = 700, kEpilogueCycles = 0.05, kLoadBytesPerCycle = 32;
+
+double conv_cycles(int m, int k, int n, int nb, int mbw) {
+  const int steps = k % 64 == 0 ? 4 : 3, nstage = 9 * k / (16 * steps);
+  const int mblocks = cdiv(m, 64), per_round = kWarpgroups * mbw;
+  double cycles = 0;
+  for (int mb = 0; mb < mblocks; mb += per_round) {
+    const int v = mblocks - mb < per_round ? mblocks - mb : per_round;
+    const double mma = v * steps * nb / 2.0;
+    cycles += n / nb * nstage * (mma > kStageCycles ? mma : kStageCycles) +
+              v * 64.0 * n * kEpilogueCycles;
+  }
+  return cycles;
+}
+
+// The tile with the fewest modelled cycles: waves of blocks over the SMs
+// (one block an SM: the block takes most of its registers) times a block's
+// cycles, both convs and the x tile's bytes.
+bool choose_tile(int batch, int h, int w, int c, int ch, int nb, int mbw, TilePlan* out) {
   const size_t max_smem = static_cast<size_t>(device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
-  const long sm_smem = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
   const long sms = device_attr(cudaDevAttrMultiProcessorCount);
-  if (max_smem == 0 || sm_smem == 0 || sms == 0) return false;
-  const long by_regs = 65536 / (static_cast<long>(round_up(regs, 8)) * kTcThreads);
+  if (max_smem == 0 || sms == 0) return false;
   bool found = false;
-  long best_cost = 0, best_share = 0, best_rows = 0;
+  double best = 0;
   for (int th = 1; th <= (h < 64 ? h : 64); ++th) {
     for (int tw = 1; tw <= (w < 64 ? w : 64); ++tw) {
       const TilePlan p = make_tile(th, tw, c, ch, nb);
       if (p.smem > max_smem) continue;
       const long blocks = static_cast<long>(batch) * cdiv(h, th) * cdiv(w, tw);
-      const long rows = round_up(p.m1, 64) + round_up(p.m2, 64);
-      const long cost = (blocks + sms - 1) / sms * rows;
-      long share = sm_smem / (static_cast<long>(p.smem) + 1024);
-      share = share < by_regs ? share : by_regs;
-      if (!found || cost < best_cost ||
-          (cost == best_cost && (share > best_share ||
-                                 (share == best_share && blocks * rows < best_rows)))) {
+      const double cost =
+          static_cast<double>((blocks + sms - 1) / sms) *
+          (conv_cycles(p.m1, c, ch, nb, mbw) + conv_cycles(p.m2, ch, c, nb, mbw) +
+           (th + 4) * p.xw * c * 2.0 / kLoadBytesPerCycle);
+      if (!found || cost < best) {
         *out = p;
-        best_cost = cost;
-        best_share = share;
-        best_rows = blocks * rows;
+        best = cost;
         found = true;
       }
     }
@@ -579,15 +658,12 @@ template <int NB>
 int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
                 void* y, int batch, int h, int w, int c, int ch, cudaStream_t stream) {
   auto kernel = fused_bottleneck_kernel_bf16<NB>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
   TilePlan p;
-  if (!choose_tile(batch, h, w, c, ch, NB, attr.numRegs, &p))
+  if (!choose_tile(batch, h, w, c, ch, NB, Cfg<NB>::kMbw, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p.smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(batch, cdiv(h, p.th), cdiv(w, p.tw));
