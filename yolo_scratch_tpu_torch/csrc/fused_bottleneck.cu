@@ -25,28 +25,36 @@
 // (C = 16..32) the bytes of x in and y out.
 //
 // bf16 path (fused_bottleneck_kernel_bf16): two warpgroups issue Hopper's
-// wgmma (m64nNk16, bf16 in, f32 sums). Against the causes that held the
-// first (wmma) version to 2-7% of that bound:
+// wgmma (m64nNk16, A from registers, B from shared memory, f32 sums).
+// Against the causes that held the first (wmma) version to 2-7% of that
+// bound:
 //   1. Pitch and halo rows. Both tiles are pixel-major, unswizzled, each
 //      pixel's row padded by 16 bytes (conflict-free ldmatrix). conv1's M is
 //      the (TH+2)(TW+2) h pixels and conv2's the TH*TW y pixels, each padded
-//      only to 64. A comes from registers: each lane of an ldmatrix.x4 gives
-//      the address of its own pixel's neighbour for the tap, so no row of a
-//      shared pitch is computed and thrown away.
+//      only to 64. Each lane of an ldmatrix.x4 gives the address of its own
+//      pixel's neighbour for the tap, so no row of a shared pitch is
+//      computed and thrown away.
 //   2. Weights from L2, fragment by fragment. The wrapper reorders each
-//      weight to (N, 3, 3, K), so a column's 9K values are contiguous; the
-//      block stages kStageBytes slices of them (all 9 taps' K, up to 64..512
-//      K-rows x N/pass columns) in shared memory by cp.async, double
-//      buffered, in wgmma's K-major no-swizzle core-matrix layout, and both
-//      warpgroups read each stage through one descriptor.
-//   3. Small products. wgmma m64nN (N = 16..128 per pass) replaces wmma's
-//      16x16x16; a warpgroup keeps kMbw 64-row blocks of sums in registers.
+//      weight to (N, 3, 3, K), so a column's 9K values are contiguous. The
+//      block copies stages of 48 or 64 K-rows x N/pass columns into shared
+//      memory with cp.async, three buffers deep, in wgmma's K-major
+//      no-swizzle core-matrix layout. Both warpgroups read each stage
+//      through one descriptor, each for up to 2..8 blocks of 64 rows.
+//   3. Small products. wgmma m64nN (N = 16..128 a pass) replaces wmma's
+//      16x16x16. A stage's A fragments and descriptors are ready before
+//      wgmma.fence, and its wgmmas are waited for only before the next
+//      stage's ldmatrix, so the barrier and the next stage's copies run
+//      under them.
 //   4. Epilogue through scratch. The epilogues run from the accumulator
 //      registers (wgmma's layout gives each thread its rows and column
 //      pairs): conv1 writes silu(acc + b1) to the h tile as bf16 pairs,
-//      conv2 stores x + silu(acc + b2) as bf16 pairs.
-// Not done yet: TMA, warp specialisation, persistent blocks, a deeper
-// pipeline.
+//      conv2 stores x + silu(acc + b2) as bf16 pairs; the biases sit in
+//      shared memory.
+// What bounds it now, on an H100: at C >= 128 the weight stream from L2
+// (every block reads both weights once per round of rows, and the tile
+// that fits shared memory shrinks as C grows); at C <= 64 the epilogue and
+// the ldmatrix traffic. Not done: TMA, warp specialisation, persistent
+// blocks, clusters sharing a weight stage.
 //
 // f32 path (fused_bottleneck_kernel_f32): FFMA on CUDA cores (never TF32),
 // one thread per 4 rows x 1 column. Both tiles are kept with one row pitch
@@ -69,9 +77,14 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
-// The bf16 path's SiLU: the MUFU exponential and reciprocal (a few ulp of
-// f32, far below bf16's rounding; for v << 0, v * rcp(inf) = -0)
-__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
+// The bf16 path's SiLU, v * sigmoid(v) = v/2 * (1 + tanh(v/2)), on one MUFU
+// op: tanh.approx.f32 is within 2^-11 of tanh, so this is within 2.5e-4 *
+// |v| of SiLU, far inside the bf16 tolerance the kernel is held to
+__device__ __forceinline__ float silu_fast(float v) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.5f * v));
+  return 0.5f * v * (1.0f + t);
+}
 
 int device_attr(cudaDeviceAttr attr) {
   int device = 0, value = 0;
@@ -233,7 +246,7 @@ struct TilePlan {
   int xw, hw;    // pixel widths of the x tile (TW + 4) and the h tile (TW + 2)
   int m1, m2;    // h pixels (TH + 2)(TW + 2), y pixels TH * TW
   int xld, hld;  // values a tile pixel's row takes: C + 8, Ch + 8
-  int h_off;     // byte offsets of the h tile, the weight stages and the tap table
+  int h_off;     // byte offsets of the h tile, the weight stages and the tap table (then the biases)
   int w_off;
   int t_off;
   int stage;     // bytes of one weight stage
@@ -548,6 +561,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   bf16* hs = reinterpret_cast<bf16*>(smem + p.h_off);
   bf16* stages = reinterpret_cast<bf16*>(smem + p.w_off);
   int* tap_off = reinterpret_cast<int*>(smem + p.t_off);
+  float* bs1 = reinterpret_cast<float*>(tap_off + 9 * (C > Ch ? C : Ch) / 16);  // biases
+  float* bs2 = bs1 + Ch;
+  for (int i = threadIdx.x; i < Ch; i += kTcThreads) bs1[i] = b1[i];
+  for (int i = threadIdx.x; i < C; i += kTcThreads) bs2[i] = b2[i];
   const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
 
   // x tile: pixel r is image pixel (y0 - 2 + r / xw, x0 - 2 + r % xw), zero
@@ -568,7 +585,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int iy = y0 - 1 + m / p.hw, ix = x0 - 1 + m % p.hw;
     const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
     *reinterpret_cast<__nv_bfloat162*>(hs + m * p.hld + n) =
-        inside ? __floats2bfloat162_rn(silu_fast(v0 + b1[n]), silu_fast(v1 + b1[n + 1]))
+        inside ? __floats2bfloat162_rn(silu_fast(v0 + bs1[n]), silu_fast(v1 + bs1[n + 1]))
                : __floats2bfloat162_rn(0.0f, 0.0f);
   };
   // conv2 -> y. y pixel m is image pixel (y0 + m / TW, x0 + m % TW); its
@@ -579,7 +596,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const float2 res = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(xs + ((oy + 2) * p.xw + ox + 2) * p.xld + n));
       *reinterpret_cast<__nv_bfloat162*>(y + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + n) =
-          __floats2bfloat162_rn(res.x + silu_fast(v0 + b2[n]), res.y + silu_fast(v1 + b2[n + 1]));
+          __floats2bfloat162_rn(res.x + silu_fast(v0 + bs2[n]), res.y + silu_fast(v1 + bs2[n + 1]));
     }
   };
 
@@ -602,7 +619,8 @@ TilePlan make_tile(int th, int tw, int c, int ch, int nb) {
   p.h_off = (th + 4) * p.xw * p.xld * 2;
   p.w_off = round_up(p.h_off + p.m1 * p.hld * 2, 128);
   p.t_off = p.w_off + kRing * p.stage;
-  p.smem = static_cast<size_t>(p.t_off) + 9 * (c > ch ? c : ch) / 16 * sizeof(int);
+  p.smem = static_cast<size_t>(p.t_off) + 9 * (c > ch ? c : ch) / 16 * sizeof(int) +
+           (c + ch) * sizeof(float);
   return p;
 }
 
