@@ -234,20 +234,19 @@ constexpr int kStageK = 64;  // K'-rows of a weight stage, at most (48 when 64 d
 constexpr int kRing = 3;     // weight stage buffers: one being loaded, two read by wgmma
 constexpr int kPixPad = 8;   // bf16 values (16 bytes) after each tile pixel's row
 
-// A warpgroup holds kMbw 64-row blocks x NB columns of f32 sums (128
-// registers a thread at NB >= 32, 64 at NB = 16).
-template <int NB>
-struct Cfg {
-  static constexpr int kMbw = NB >= 128 ? 2 : NB >= 32 ? 4 : 8;
-};
+// 64-row blocks a warpgroup holds at nb columns a pass (their f32 sums take
+// 128 registers a thread at nb >= 32, 64 at nb = 16)
+__host__ __device__ constexpr int blocks_per_warpgroup(int nb) {
+  return nb >= 128 ? 2 : nb >= 32 ? 4 : 8;
+}
 
 struct TilePlan {
   int th, tw;    // output tile
   int xw, hw;    // pixel widths of the x tile (TW + 4) and the h tile (TW + 2)
   int m1, m2;    // h pixels (TH + 2)(TW + 2), y pixels TH * TW
   int xld, hld;  // values a tile pixel's row takes: C + 8, Ch + 8
-  int h_off;     // byte offsets of the h tile, the weight stages and the tap table (then the biases)
-  int w_off;
+  int h_off;     // byte offsets of the h tile, the weight stages and the
+  int w_off;     // tap table (the biases follow it)
   int t_off;
   int stage;     // bytes of one weight stage
   size_t smem;   // bytes of dynamic shared memory
@@ -329,7 +328,8 @@ __device__ __forceinline__ void wgmma<16>(float (&d)[8], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -340,8 +340,9 @@ __device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4]
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -353,10 +354,12 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4]
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -370,14 +373,17 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -443,7 +449,8 @@ __device__ __forceinline__ void conv_wgmma(const bf16* tile, int ld, int in_w, i
                                            int K, int N, const bf16* __restrict__ w, bf16* stages,
                                            int stage_bytes, int* tap_off, Epi epi) {
   static_assert(kRing == 3, "the loop loads one stage ahead into the buffer of stage - 2");
-  constexpr int kMbw = Cfg<NB>::kMbw, kGroups = S * 2;  // 16-byte groups of a column in a stage
+  constexpr int kMbw = blocks_per_warpgroup(NB);
+  constexpr int kGroups = S * 2;  // 16-byte groups of a column in a stage
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
   const int kk = 9 * K;                                 // K' of one column
   const int nstage = kk / (S * 16);
@@ -647,7 +654,8 @@ double conv_cycles(int m, int k, int n, int nb, int mbw) {
 // The tile with the fewest modelled cycles: waves of blocks over the SMs
 // (one block an SM: the block takes most of its registers) times a block's
 // cycles, both convs and the x tile's bytes.
-bool choose_tile(int batch, int h, int w, int c, int ch, int nb, int mbw, TilePlan* out) {
+bool choose_tile(int batch, int h, int w, int c, int ch, int nb, TilePlan* out) {
+  const int mbw = blocks_per_warpgroup(nb);
   const size_t max_smem = static_cast<size_t>(device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
   const long sms = device_attr(cudaDevAttrMultiProcessorCount);
   if (max_smem == 0 || sms == 0) return false;
@@ -677,7 +685,7 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
                 void* y, int batch, int h, int w, int c, int ch, cudaStream_t stream) {
   auto kernel = fused_bottleneck_kernel_bf16<NB>;
   TilePlan p;
-  if (!choose_tile(batch, h, w, c, ch, NB, Cfg<NB>::kMbw, &p))
+  if (!choose_tile(batch, h, w, c, ch, NB, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
