@@ -31,9 +31,8 @@ Phases (any failure raises and exits non-zero):
    (bf16) or 1e-5 (f32), atol the same times min(1, max|plain|), everywhere
    and on the border rows and columns, and the check must reject both zeros
    and x itself (a skipped branch). Then times: the
-   kernel, the whole wrapper call (with the bf16 weight reorder), the folded
-   module on cuDNN (the library yardstick) and the plain version at each
-   shape, beside the bound.
+   kernel, the folded module on cuDNN (the library yardstick) and the plain
+   version at each shape, beside the bound.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -361,9 +360,8 @@ def bottleneck_phase(dev, ident: str) -> dict:
     row = None
     for case in cases + f32_cases:
         t = P.time_case(case)
-        log(f"bottleneck {case.name} B={BATCH} {case.got.dtype}: kernel {t['ms']:.4f} ms "
-            f"(whole call {t['call_ms']:.4f} ms), cuDNN folded module {t['library_ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.3f} ms, "
+        log(f"bottleneck {case.name} B={BATCH} {case.got.dtype}: kernel {t['ms']:.4f} ms, "
+            f"cuDNN folded module {t['library_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), {t['share']:.3f} of bound, "
             f"on {ident}")
         if case.name == BNECK_ROW:
@@ -374,9 +372,9 @@ def bottleneck_phase(dev, ident: str) -> dict:
         shapes.setdefault(case.name, case)
     for name, case in shapes.items():
         t = P.time_case(case)
-        log(f"bottleneck {name} B={BATCH} bf16: kernel {t['ms']:.4f} ms (whole call "
-            f"{t['call_ms']:.4f} ms), cuDNN folded module {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['share']:.3f} of bound, on {ident}")
+        log(f"bottleneck {name} B={BATCH} bf16: kernel {t['ms']:.4f} ms, cuDNN folded module "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['share']:.3f} of bound")
     return dict(row=row, launches=probe_launches + contract_launches)
 
 

@@ -9,8 +9,7 @@ makes the probe's seeded inputs, runs kernel #3
 (``ops/conv_kernels.fused_bottleneck``) once and holds it against its plain
 version, then reports:
 
-* the kernel's device ms (``torch.profiler``), and the whole wrapper call's
-  (with the bf16 path's weight reorder, ``conv_kernels.weights_ohwi``);
+* the kernel's device ms (``torch.profiler``);
 * the yardstick's device ms: the port's folded ``Bottleneck`` module in the
   same type, ``channels_last``, on cuDNN, as the Predictor runs it;
 * the bound: the larger of the operations over the card's dense peak for
@@ -162,8 +161,7 @@ def run_cases(batch: int, dtype: torch.dtype, device, shapes=SHAPES, seed: int =
 
 
 def time_case(case: Case) -> dict:
-    """Kernel, whole-call, yardstick and plain device ms, bound and share for
-    one case."""
+    """Kernel, yardstick and plain device ms, bound and share for one case."""
     x, w1, b1, w2, b2 = case.inputs
     B, H, W, C = x.shape
     module = folded_module(w1, b1, w2, b2)
@@ -171,12 +169,11 @@ def time_case(case: Case) -> dict:
 
     with torch.inference_mode(), CK.full_f32():  # an f32 yardstick without TF32
         ms = kernel_ms(lambda: CK.fused_bottleneck(*case.inputs), "fused_bottleneck_kernel", REPS)
-        call = device_ms(lambda: CK.fused_bottleneck(*case.inputs), REPS)
         library = device_ms(lambda: module(xc), REPS)
         plain = device_ms(lambda: CK.bottleneck_plain(*case.inputs), REPS // 4)
     bms, by = bound_ms(B, H, W, C, w1.shape[-1], x.dtype)
-    return dict(ms=ms, call_ms=call, library_ms=library, plain_ms=plain, bound_ms=bms,
-                bound_by=by, share=bms / ms)
+    return dict(ms=ms, library_ms=library, plain_ms=plain, bound_ms=bms, bound_by=by,
+                share=bms / ms)
 
 
 def main(argv=None) -> int:
