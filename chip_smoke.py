@@ -9,9 +9,10 @@ Phases (any failure raises and exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc builds the NMS and bottleneck libraries from
    ``yolo_scratch_tpu_torch/csrc``, one nvcc per source, started together;
-3. kernels: each NMS kernel against its plain version on seeded boxes
-   (exactly equal keep masks), with its time, the plain version's time and
-   its bound at the main path's shape, and at N=2048;
+3. kernels: each NMS wrapper against its plain version on seeded boxes
+   (exactly equal keep masks), with its device time per call (the IoU mask
+   and reduce kernels summed, and each on its own), the plain version's
+   time and its bound at the main path's shape, and at N=2048;
 4. slice: YOLO11n at 640x640 (crater row ch=1/nc=5, COCO row ch=3/nc=80),
    seeded init, through ``Predictor.predict_batch`` at B=32. The launch
    counters are zeroed just before each path and read just after. Checks:
@@ -68,7 +69,7 @@ from yolo_scratch_tpu_torch.ops.decode import (
     postprocess,
     select_candidates,
 )
-from yolo_scratch_tpu_torch.utils.cuda_timing import kernel_ms, time_ms
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, time_ms
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): HBM bytes/s and
 # f32 (non-tensor-core) FLOP/s. The NMS sweep is f32 compare/divide work.
@@ -79,16 +80,18 @@ F32_FLOP_PER_S = 67e12
 OPS_PER_IOU = 14
 IOU = 0.45
 BATCH, IMGSZ = 32, 640  # the Predictor's defaults: the main path's shape
+# the kernels one NMS wrapper call launches: the IoU mask, then the reduce
+NMS_SYMBOLS = ("nms_iou_mask_kernel", "nms_reduce_kernel")
 
 KERNELS = {
     "nms_sweep_batched": dict(
         source="yolo_scratch_tpu_torch/csrc/nms_sweep.cu",
         replaces="yolo_scratch_tpu/ops/pallas_nms.py:102",
-        symbol="nms_sweep_batched_kernel", plain=K.nms_sweep_batched_plain),
+        symbol=NMS_SYMBOLS, plain=K.nms_sweep_batched_plain),
     "nms_sweep": dict(
         source="yolo_scratch_tpu_torch/csrc/nms_sweep.cu",
         replaces="yolo_scratch_tpu/ops/pallas_nms.py:27",
-        symbol="nms_sweep_single_kernel", plain=K.nms_sweep_plain),
+        symbol=NMS_SYMBOLS, plain=K.nms_sweep_plain),
     "fused_bottleneck": dict(
         source="yolo_scratch_tpu_torch/csrc/fused_bottleneck.cu",
         replaces="yolo_scratch_tpu/ops/pallas_conv.py:81",
@@ -153,12 +156,13 @@ def kernel_phase(dev) -> dict:
             raise AssertionError(f"{name} {shape}: kernel keep mask differs from the plain "
                                  f"version in {int((got != ref).sum())} places")
         err = float((got.float() - ref.float()).abs().max())
-        ms = kernel_ms(lambda: wrapper(boxes, valid, IOU), spec["symbol"])
-        call_ms = time_ms(lambda: wrapper(boxes, valid, IOU), reps=50)
+        ms, split = call_ms(lambda: wrapper(boxes, valid, IOU), spec["symbol"])
+        wall_ms = time_ms(lambda: wrapper(boxes, valid, IOU), reps=50)
         plain_ms = time_ms(lambda: spec["plain"](boxes, valid, IOU), reps=1, windows=3)
         bound_ms, bound_by = bound(got, shape[-1])
         log(f"kernel {name} shape={shape}: exact (max_abs_err {err}), kept {int(got.sum())}, "
-            f"{ms:.4f} ms kernel on the card, {call_ms:.4f} ms per wrapper call, "
+            f"{ms:.4f} ms on the card per call (mask {split[NMS_SYMBOLS[0]]:.4f} + reduce "
+            f"{split[NMS_SYMBOLS[1]]:.4f}), {wall_ms:.4f} ms per wrapper call, "
             f"{plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
             f"({bound_by}); no single PyTorch call computes greedy NMS, so no library "
             f"yardstick")

@@ -2,7 +2,8 @@
 card.
 
 * NMS sweeps (kernels #1, #2): exact. Keep masks are booleans and the
-  kernels round every f32 operation as the plain sweep does.
+  kernels round every f32 operation as the plain sweep does; the IoU mask
+  kernel's words equal ``nms_iou_mask_plain``'s bit for bit.
 * Fused bottleneck (kernel #3): bf16 at rtol = atol = 0.05, the border rows
   and columns also on their own (h is rounded to bf16 once; a sum in another
   order can round it to the neighbouring value). f32 at rtol = atol = 1e-5,
@@ -37,16 +38,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, shape, device):
+def _inputs(seed, shape, device, spread=640.0):
     rng = np.random.RandomState(seed)
-    c = rng.uniform(0, 640, (*shape, 2))
+    c = rng.uniform(0, spread, (*shape, 2))
     wh = rng.uniform(4, 160, (*shape, 2))
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
     return (torch.from_numpy(boxes).to(device),
             torch.from_numpy(rng.rand(*shape) > 0.1).to(device))
 
 
-@pytest.mark.parametrize("B,N", [(32, 512), (4, 2048), (3, 77), (2, 4000)])
+@pytest.mark.parametrize("B,N", [(32, 512), (4, 2048), (3, 77), (2, 4000), (2, 1), (3, 64),
+                                 (2, 65)])
 def test_kernel_batched_matches_plain(cuda, B, N):
     boxes, valid = _inputs(B + N, (B, N), cuda)
     before = K.launches["nms_sweep_batched"]
@@ -56,7 +58,7 @@ def test_kernel_batched_matches_plain(cuda, B, N):
     assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
 
 
-@pytest.mark.parametrize("N", [512, 2048, 77])
+@pytest.mark.parametrize("N", [512, 2048, 77, 1, 64, 65])
 def test_kernel_single_matches_plain(cuda, N):
     boxes, valid = _inputs(N, (N,), cuda)
     before = K.launches["nms_sweep"]
@@ -79,6 +81,39 @@ def test_kernel_threshold_ties_match_plain(cuda):
         assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, thr))
 
 
+@pytest.mark.parametrize("with_valid", [False, True], ids=["all", "valid"])
+@pytest.mark.parametrize("B,N,thr,spread", [
+    (2, 1, 0.45, 640.0), (3, 77, 0.45, 640.0), (2, 64, 0.45, 100.0), (2, 65, 0.0, 100.0),
+    (4, 512, 0.45, 640.0), (2, 300, -0.1, 640.0), (1, 4000, 0.45, 640.0), (2, 200, 0.45, 40.0)])
+def test_kernel_iou_mask_matches_plain(cuda, B, N, thr, spread, with_valid):
+    """Phase 1 alone: the mask kernel's words, bit 63 included, equal the
+    plain version's, with every box valid and with ~10% invalid (their rows
+    and columns left 0); the lower triangle stays as the private wrapper's
+    zeros. thr 0 and -0.1 hold the divide's skip to thr >= 0."""
+    boxes, valid = _inputs(B * N + 1, (B, N), cuda, spread)
+    valid = valid if with_valid else None
+    got = K._iou_mask(boxes, thr, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.nms_iou_mask_plain(boxes, thr, valid))
+
+
+def test_kernel_negative_threshold_matches_plain(cuda):
+    boxes, valid = _inputs(5, (3, 300), cuda)
+    assert torch.equal(K.nms_sweep_batched(boxes, valid, -0.1),
+                       K.nms_sweep_batched_plain(boxes, valid, -0.1))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.02, 0.5])
+def test_kernel_sparse_valid_matches_plain(cuda, share):
+    """Mostly invalid candidates, as at conf 0.25: whole 64-pivot blocks
+    with nothing to resolve are skipped."""
+    boxes, _ = _inputs(9, (4, 700), cuda, 200.0)
+    valid = torch.rand((4, 700), generator=torch.Generator().manual_seed(1)) < share
+    valid = valid.to(cuda)
+    assert torch.equal(K.nms_sweep_batched(boxes, valid, 0.45),
+                       K.nms_sweep_batched_plain(boxes, valid, 0.45))
+
+
 def test_kernel_wrapper_rejects_bad_input(cuda):
     valid = torch.ones((2, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
@@ -88,8 +123,8 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
         K._launch("nms_sweep_batched", torch.zeros((2, 16, 4), device=cuda)[:, ::2], valid, 0.45)
     with pytest.raises(ValueError):
         K._launch("nms_sweep_batched", torch.zeros((2, 8, 4)), valid.cpu(), 0.45)
-    with pytest.raises(ValueError, match="shared memory"):
-        n = 20000
+    with pytest.raises(ValueError, match="remv words"):
+        n = K._max_n() + 1
         K._launch("nms_sweep_batched", torch.zeros((1, n, 4), device=cuda),
                   torch.ones((1, n), dtype=torch.bool, device=cuda), 0.45)
 

@@ -50,6 +50,57 @@ def test_sweep_batched_plain_matches_pallas(seed, B, N, spread, iou):
     assert 0 < got.sum() < valid.sum()  # the sweep suppressed something
 
 
+def _two_phase_inputs(case):
+    """(boxes (B, N, 4), valid (B, N), iou) for one case of the two-phase test."""
+    rng = np.random.RandomState(17)
+    if case.startswith("n="):  # ragged and whole 64-pivot blocks
+        n = int(case[2:])
+        return _boxes(rng, (2, n), 96.0), rng.rand(2, n) > 0.15, 0.45
+    if case == "dense":  # heavy suppression: many kept pivots' words OR'd
+        return _boxes(rng, (2, 150), 24.0), rng.rand(2, 150) > 0.1, 0.45
+    if case == "invalid_rows":  # one image with no valid box
+        valid = rng.rand(3, 90) > 0.15
+        valid[1] = False
+        return _boxes(rng, (3, 90), 64.0), valid, 0.5
+    if case.startswith("ties"):  # the boxes of test_kernel_threshold_ties_match_plain
+        boxes = np.array([[0, 0, 10, 10], [0, 0, 10, 10], [0, 0, 10, 4.5], [0, 0, 10, 5.0],
+                          [0, 0, 10, 7.0], [100, 100, 110, 110], [100.5, 100, 110.5, 110]],
+                         np.float32)[None]
+        return boxes, np.ones(boxes.shape[:2], bool), float(case.split("@")[1])
+    if case == "negative_thr":  # every IoU, 0 included, exceeds it: the divide is not skipped
+        return _boxes(rng, (2, 70), 150.0), rng.rand(2, 70) > 0.15, -0.1
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["n=1", "n=63", "n=64", "n=65", "n=200", "dense",
+                                  "invalid_rows", "ties@0.45", "ties@0.5", "ties@0.7",
+                                  "negative_thr"])
+def test_two_phase_plain_matches_sweep_and_pallas(case):
+    """The CUDA kernels' two phases, in plain PyTorch: mask words (with and
+    without the valid flags) then the serial reduce equal the plain sweep
+    and the Pallas kernel (interpret mode) exactly; the words hold no bit at
+    j <= i or j >= N."""
+    boxes, valid, iou = _two_phase_inputs(case)
+    words = tk.nms_iou_mask_plain(_t(boxes), iou)
+    B, n = valid.shape
+    assert words.dtype == torch.int64 and tuple(words.shape) == (B, n, -(-n // 64))
+    got = tk.nms_reduce_plain(words, _t(valid)).numpy()
+    np.testing.assert_array_equal(got, tk.nms_sweep_batched_plain(_t(boxes), _t(valid),
+                                                                  iou).numpy())
+    # the kernel's mask leaves out invalid rows and columns: the same keep
+    np.testing.assert_array_equal(
+        tk.nms_reduce_plain(tk.nms_iou_mask_plain(_t(boxes), iou, _t(valid)), _t(valid)).numpy(),
+        got)
+    ref = np.asarray(jpallas.nms_sweep_pallas_batched(boxes, valid, iou, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    # unpack by shifts (bit 63 is the sign bit): only i < j < n may be set
+    bits = ((words[..., None] >> torch.arange(64)) & 1).reshape(B, n, -1)
+    assert not bits[..., n:].any()
+    assert not bits[..., :n][:, torch.arange(n)[None, :] <= torch.arange(n)[:, None]].any()
+    if case == "dense":
+        assert 0 < got.sum() < valid.sum() / 2
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("n", [40, 200])
 def test_sweep_single_plain_matches_pallas(seed, n):

@@ -1,31 +1,52 @@
-// Greedy-NMS suppression sweep for Hopper (sm_90a), plain C interface.
+// Greedy-NMS suppression for Hopper (sm_90a), plain C interface: an IoU
+// bitmask built on every SM, then a short serial reduce.
 //
 // Replaces the two Pallas TPU kernels of yolo_scratch_tpu/ops/pallas_nms.py:
 //   * yst_nms_sweep_batched  <- _nms_kernel_batched (pallas_call at :160),
-//     the Predictor's default NMS at B > 1: one block per image;
+//     the Predictor's default NMS at B > 1;
 //   * yst_nms_sweep_single   <- _nms_kernel (pallas_call at :89), the B=1
-//     path of ops/decode.py::postprocess: one block.
-// Both give a block one thread per candidate (up to 1024): a pivot step's
-// latency grows with the candidates each thread tests.
+//     path of ops/decode.py::postprocess: the same two kernels at B = 1.
 // Bound in Python by yolo_scratch_tpu_torch/ops/nms_kernels.py, which also
-// holds the plain PyTorch version of the same sweep.
+// holds the plain PyTorch sweep and each phase in plain PyTorch.
 //
 // What it computes, for each image (boxes xyxy, score-descending):
 //   for i = 0 .. n-1: pivot i is kept iff valid[i] and not suppressed[i];
 //   a kept pivot suppresses every j > i with
 //     inter / (((area_j + area_i) - inter) + 1e-6) > thr      (f32, strict >)
 //   keep[j] = valid[j] && !suppressed[j].
-// A suppressed pivot never suppresses: its flag is read only after the
-// barrier that ends the last step that wrote flags.
 //
-// What bounds it: neither bytes (18 bytes per box in and out) nor operations
-// (at most n^2/2 IoUs per image). It is the chain of dependent pivot steps,
-// each kept pivot ending in a block-wide barrier, and -- with one block per
-// image -- the batch size in SMs (B = 32 occupies 32 of 132). The design
-// keeps the whole problem in shared memory (22 bytes per box), gives each
-// thread the candidates j = i+1+tid, i+1+tid+blockDim, ..., and skips both
-// the IoU pass and the barrier for a pivot that is not kept (a uniform
-// branch: every thread reads the same flag).
+// Phase 1, nms_iou_mask_kernel: every pair's suppression bit, computed on
+// all SMs, off the serial chain. A block takes one image's tile of 64 rows
+// by 64 columns, upper triangle only (column tile >= row tile); each of its
+// 64 threads owns a row i and writes one 64-bit word mask[b][i][ct], bit k
+// set iff j = 64 ct + k has i < j < n, boxes i and j are valid, and pivot
+// i's IoU with j exceeds thr. An invalid box's bits do not matter (it is
+// never kept, and the reduce never ORs in its word), so an invalid row's
+// word is 0 and an invalid column's bit is left clear; the words left of a
+// row's own tile are never written. What bounds it: the IoU tests, n^2/2
+// per image. A thread first marks the columns that may intersect its row
+// (four compares), then divides only for those: with inter == 0 the IoU is
+// +-0 or NaN, never > thr when thr >= 0, so the skip is exact (a negative
+// thr divides every pair). Most pairs of a detector's candidates are
+// disjoint.
+//
+// Phase 2, nms_reduce_kernel: four warps per image walk its ceil(n/64)
+// blocks of 64 pivots in order, with the suppression words (remv) in
+// registers, word w in lane w % 32. For block t, every warp resolves the 64
+// pivots against their diagonal words (mask[i][t], loaded two blocks ahead
+// and staged in shared memory): pivot k is kept iff its valid bit is set
+// and its remv bit clear, and a kept pivot's word is ORed in -- three
+// dependent integer operations a pivot. A block with at most 16 pivots
+// still open (valid, not yet suppressed) resolves only those, one step per
+// kept pivot; a block with none skips the resolve. Warp g then ORs the kept
+// rows among the block's rows 16g .. 16g+15 into its share of the later
+// remv words (their loads issued before the resolve, so the round trip to
+// L2 runs under it), and the four shares of word t+1 meet in shared memory
+// once a block. What bounds it: the chain of ceil(n/64) blocks, each a
+// resolve of up to 64 dependent steps and a block-wide barrier. The mask's
+// rows are padded to the reduce's 32 or 64 lanes of words
+// (yst_nms_mask_stride), so its loads take constant offsets; the words a
+// lane holds set the largest n (yst_nms_max_n).
 //
 // Exactness: the IoU is written with __f*_rn intrinsics in the JAX operation
 // order, and the library is built with -fmad=false, so no multiply-add is
@@ -36,90 +57,277 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr size_t kDefaultSmem = 48 * 1024;
+using u64 = unsigned long long;
 
-__host__ __device__ constexpr size_t sweep_smem_bytes(int n) {
-  return static_cast<size_t>(n) * (5 * sizeof(float) + 2);
+constexpr int kTile = 64;            // pivots per mask word; threads per mask block
+constexpr int kMaxWordsPerLane = 2;  // remv words one reduce lane holds
+constexpr int kMaxWords = 32 * kMaxWordsPerLane;
+constexpr int kReduceWarps = 4;      // a reduce block's warps; each ORs 16 rows of a block
+constexpr int kRowsPerWarp = kTile / kReduceWarps;
+constexpr int kSparse = 16;  // open pivots up to which a block resolves them one by one
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// remv words a reduce lane holds for ceil(n/64) words: 1 or 2
+__host__ __device__ constexpr int words_per_lane(int words) {
+  return words <= 32 ? 1 : kMaxWordsPerLane;
 }
 
-// One thread per candidate, in whole warps, at most kMaxThreads.
-int block_threads(int n) {
-  const int threads = ((n + 31) / 32) * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
+// Candidate a against pivot b, in the sweep's operation order.
+__device__ __forceinline__ float intersection(float4 a, float4 b) {
+  const float w = fmaxf(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 0.0f);
+  const float h = fmaxf(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 0.0f);
+  return __fmul_rn(w, h);
 }
 
-__device__ __forceinline__ void sweep_block(const float* __restrict__ boxes,
-                                            const uint8_t* __restrict__ valid,
-                                            uint8_t* __restrict__ keep, int n,
-                                            float thr) {
-  extern __shared__ float smem[];
-  float* x1 = smem;
-  float* y1 = x1 + n;
-  float* x2 = y1 + n;
-  float* y2 = x2 + n;
-  float* area = y2 + n;
-  uint8_t* supp = reinterpret_cast<uint8_t*>(area + n);
-  uint8_t* val = supp + n;
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+}
 
-  const float4* b4 = reinterpret_cast<const float4*>(boxes);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float4 b = b4[j];
-    x1[j] = b.x;
-    y1[j] = b.y;
-    x2[j] = b.z;
-    y2[j] = b.w;
-    area[j] = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
-    supp[j] = 0;
-    val[j] = valid[j];
+// A box for the overlap test: NaN becomes the value fminf/fmaxf would pass
+// over (x1, y1 feed a max: -inf; x2, y2 a min: +inf), and a box with no
+// width or height one that overlaps nothing. Then every pair whose
+// intersection is neither 0 nor NaN satisfies overlaps(); so may pairs
+// whose w * h underflows to 0 or whose min/max were both NaN, which the
+// divide then settles exactly.
+__device__ __forceinline__ float4 test_box(float4 b) {
+  const float inf = __int_as_float(0x7f800000);
+  float4 t = make_float4(isnan(b.x) ? -inf : b.x, isnan(b.y) ? -inf : b.y,
+                         isnan(b.z) ? inf : b.z, isnan(b.w) ? inf : b.w);
+  if (!(t.z > t.x && t.w > t.y)) t = make_float4(inf, inf, -inf, -inf);
+  return t;
+}
+
+// min(a.z, b.z) > max(a.x, b.x) and the same in y, on test boxes (whose
+// own z > x and w > y): four compares.
+__device__ __forceinline__ bool overlaps(float4 a, float4 b) {
+  return (a.z > b.x) & (b.z > a.x) & (a.w > b.y) & (b.w > a.y);
+}
+
+// Grid (image, upper-triangle tile), kTile threads. Row i's words lie at
+// mask[(b * n + i) * stride + w], stride = 32 * words_per_lane(words).
+// valid may be null (every box valid).
+__global__ void __launch_bounds__(kTile)
+    nms_iou_mask_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
+                        u64* __restrict__ mask, int n, int stride, float thr) {
+  __shared__ float4 col[kTile], col_test[kTile];
+  __shared__ float col_area[kTile];
+  __shared__ unsigned col_valid[kTile / 32];
+  const int words = (n + kTile - 1) / kTile;
+  int rt = 0, p = blockIdx.y;  // tile p of the triangle -> (row tile rt, column tile ct)
+  while (p >= words - rt) {
+    p -= words - rt;
+    ++rt;
   }
-
-  __syncthreads();  // the loads are visible
-  for (int i = 0; i < n; ++i) {
-    // Every thread reads the same flags: each write to supp is followed by
-    // a barrier before any thread reads it, so the branch is uniform. A
-    // pivot that is not kept writes nothing and needs no barrier.
-    if (!val[i] || supp[i]) continue;
-    const float px1 = x1[i], py1 = y1[i], px2 = x2[i], py2 = y2[i];
-    const float parea = area[i];
-    for (int j = i + 1 + threadIdx.x; j < n; j += blockDim.x) {
-      const float w = fmaxf(__fsub_rn(fminf(x2[j], px2), fmaxf(x1[j], px1)), 0.0f);
-      const float h = fmaxf(__fsub_rn(fminf(y2[j], py2), fmaxf(y1[j], py1)), 0.0f);
-      const float inter = __fmul_rn(w, h);
-      const float denom = __fadd_rn(__fsub_rn(__fadd_rn(area[j], parea), inter), 1e-6f);
-      if (__fdiv_rn(inter, denom) > thr) supp[j] = 1;
-    }
-    __syncthreads();  // pivot i's suppressions are visible to step i+1
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) keep[j] = val[j] && !supp[j];
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    nms_sweep_batched_kernel(const float* __restrict__ boxes,
-                             const uint8_t* __restrict__ valid,
-                             uint8_t* __restrict__ keep, int n, float thr) {
+  const int ct = rt + p;
   const size_t img = blockIdx.x;
-  sweep_block(boxes + img * n * 4, valid + img * n, keep + img * n, n, thr);
-}
+  boxes += img * n;
+  if (valid) valid += img * n;
 
-__global__ void __launch_bounds__(kMaxThreads)
-    nms_sweep_single_kernel(const float* __restrict__ boxes,
-                            const uint8_t* __restrict__ valid,
-                            uint8_t* __restrict__ keep, int n, float thr) {
-  sweep_block(boxes, valid, keep, n, thr);
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, int blocks, int threads, const float* boxes,
-           const uint8_t* valid, uint8_t* keep, int n, float thr, void* stream) {
-  if (blocks <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sweep_smem_bytes(n);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int tid = threadIdx.x, j = ct * kTile + tid;
+  const float4 c = j < n ? boxes[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  col[tid] = c;
+  col_test[tid] = test_box(c);
+  col_area[tid] = box_area(c);
+  const unsigned vj = __ballot_sync(kFullWarp, j < n && (!valid || valid[j]));
+  if (tid % 32 == 0) col_valid[tid / 32] = vj;
+  __syncthreads();
+  const int i = rt * kTile + tid;
+  if (i >= n) return;
+  u64* out = mask + (img * n + i) * stride + ct;
+  if (valid && !valid[i]) {  // an invalid pivot is never kept: its words stay 0
+    *out = 0;
+    return;
   }
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(boxes, valid, keep, n, thr);
+  const float4 piv = boxes[i];
+  const float parea = box_area(piv);
+
+  // The valid columns j > i. An invalid j is never kept whatever its bit,
+  // and never suppresses, so its bit is left 0.
+  u64 cand = static_cast<u64>(col_valid[1]) << 32 | col_valid[0];
+  if (ct == rt) cand &= tid == kTile - 1 ? 0ull : ~0ull << (tid + 1);
+  if (thr >= 0.0f) {  // uniform: keep only the columns that may intersect row i
+    const float4 piv_test = test_box(piv);
+    u64 hit = 0;
+#pragma unroll
+    for (int k = 0; k < kTile; ++k)
+      hit |= static_cast<u64>(overlaps(col_test[k], piv_test)) << k;
+    cand &= hit;
+  }
+  u64 bits = 0;
+  while (cand) {
+    const int k = __ffsll(static_cast<long long>(cand)) - 1;
+    cand &= cand - 1;
+    const float inter = intersection(col[k], piv);
+    const float denom = __fadd_rn(__fsub_rn(__fadd_rn(col_area[k], parea), inter), 1e-6f);
+    if (__fdiv_rn(inter, denom) > thr) bits |= 1ull << k;
+  }
+  *out = bits;
+}
+
+// One resolve step on the low half of remv word t: if bit `bit` of lo is
+// clear (pivot kept), OR the pivot's diagonal word into lo:hi. The bit is
+// multiplied up to the sign and spread into a mask: three dependent
+// operations a pivot (a predicated OR waits longer on its predicate).
+__device__ __forceinline__ void resolve_lo(unsigned& lo, unsigned& hi, unsigned bit,
+                                           unsigned dlo, unsigned dhi) {
+  const unsigned m = static_cast<unsigned>(static_cast<int>(lo * (0x80000000u / bit)) >> 31);
+  lo |= ~m & dlo;
+  hi |= ~m & dhi;
+}
+
+// The same on the high half: pivots 32..63 suppress only bits above 32.
+__device__ __forceinline__ void resolve_hi(unsigned& hi, unsigned bit, unsigned dhi) {
+  const unsigned m = static_cast<unsigned>(static_cast<int>(hi * (0x80000000u / bit)) >> 31);
+  hi |= ~m & dhi;
+}
+
+// Grid (image), kReduceWarps warps; WPL remv words a lane, so
+// n <= 64 * 32 * WPL. Every warp resolves each block itself (the chain is
+// short and the warps run on their own schedulers); warp g ORs rows
+// 16g .. 16g+15 of each block into its share of the remv words, and the
+// shares of word t+1 meet in shared memory once a block.
+template <int WPL>
+__global__ void __launch_bounds__(kReduceWarps * 32)
+    nms_reduce_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
+                      uint8_t* __restrict__ keep, int n) {
+  constexpr int kStride = 32 * WPL;  // the mask's row stride, in words
+  __shared__ u64 diag[kReduceWarps][kTile];
+  __shared__ u64 share[2][kReduceWarps];  // each warp's share of remv word t, by t's parity
+  const int words = (n + kTile - 1) / kTile;
+  const size_t img = blockIdx.x;
+  mask += img * n * kStride;
+  valid += img * n;
+  keep += img * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  u64 remv[WPL];  // this warp's share: its rows' words, ORed over the kept rows
+#pragma unroll
+  for (int q = 0; q < WPL; ++q) remv[q] = 0;
+  if (lane == 0) share[0][warp] = 0;
+  __syncthreads();
+
+  // block t's diagonal words and valid flags, rows 64t + lane and 64t + 32 + lane,
+  // loaded two blocks ahead (a block with little to resolve is shorter than
+  // a round trip to L2)
+  struct Block {
+    u64 d0, d1;
+    bool v0, v1;
+  };
+  auto load_block = [&](int t) {
+    const int i0 = t * kTile + lane, i1 = i0 + 32;
+    Block b;
+    b.v0 = i0 < n && valid[i0];
+    b.v1 = i1 < n && valid[i1];
+    b.d0 = i0 < n ? mask[static_cast<size_t>(i0) * kStride + t] : 0;
+    b.d1 = i1 < n ? mask[static_cast<size_t>(i1) * kStride + t] : 0;
+    return b;
+  };
+  Block cur = load_block(0), next = load_block(1);
+  for (int t = 0; t < words; ++t) {
+    u64* dg = diag[warp];
+    dg[lane] = cur.d0;
+    dg[lane + 32] = cur.d1;
+    const u64 vbits = __ballot_sync(kFullWarp, cur.v0) |
+                      static_cast<u64>(__ballot_sync(kFullWarp, cur.v1)) << 32;
+    cur = next;
+    next = load_block(t + 2);  // in flight during the next two blocks
+
+    // This warp's 16 rows of the block, their later words (which rows are
+    // kept is not known yet). With one word a lane they are loaded here, so
+    // that the round trip to L2 runs under the resolve.
+    const u64* rows = mask + static_cast<size_t>(t * kTile + warp * kRowsPerWarp) * kStride;
+    u64 pre[kRowsPerWarp];
+    if constexpr (WPL == 1) {
+      if (lane > t && lane < words) {
+#pragma unroll
+        for (int k = 0; k < kRowsPerWarp; ++k) pre[k] = rows[k * kStride + lane];
+      }
+    }
+
+    // remv word t, from the warps' shares; an invalid pivot counts as
+    // suppressed, so it is never kept and its word never ORed in
+    u64 r = ~vbits;
+#pragma unroll
+    for (int g = 0; g < kReduceWarps; ++g) r |= share[t & 1][g];
+    __syncwarp();  // dg is visible to every lane
+    u64 kept = 0;
+    const u64 open = ~r;  // the block's pivots still to resolve (uniform)
+    if (__popcll(open) <= kSparse) {
+      // Few open pivots (as at a high confidence threshold): the lowest is
+      // kept; drop it and every pivot it suppresses; repeat.
+      for (u64 c = open; c;) {
+        const u64 low = c & (0 - c);
+        kept |= low;
+        c &= ~low & ~dg[__ffsll(static_cast<long long>(c)) - 1];
+      }
+    } else {
+      unsigned lo = static_cast<unsigned>(r), hi = static_cast<unsigned>(r >> 32);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const u64 d = dg[k];
+        resolve_lo(lo, hi, 1u << k, static_cast<unsigned>(d), static_cast<unsigned>(d >> 32));
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        resolve_hi(hi, 1u << k, static_cast<unsigned>(dg[32 + k] >> 32));
+      kept = ~(static_cast<u64>(hi) << 32 | lo);
+    }
+    if (kept) {
+      // this warp's kept rows' words w > t, into the lanes that hold them
+      const unsigned mine = static_cast<unsigned>(kept >> (warp * kRowsPerWarp)) & 0xffffu;
+#pragma unroll
+      for (int q = 0; q < WPL; ++q) {
+        const int w = lane + 32 * q;
+        if (w > t && w < words) {
+          if constexpr (WPL > 1) {
+#pragma unroll
+            for (int k = 0; k < kRowsPerWarp; ++k) pre[k] = rows[k * kStride + w];
+          }
+          u64 acc[2] = {0, 0};  // two short OR chains
+#pragma unroll
+          for (int k = 0; k < kRowsPerWarp; ++k) acc[k & 1] |= mine >> k & 1 ? pre[k] : 0;
+          remv[q] |= acc[0] | acc[1];
+        }
+      }
+    }
+    if (warp == 0) {
+      const int i0 = t * kTile + lane;
+      if (i0 < n) keep[i0] = kept >> lane & 1;
+      if (i0 + 32 < n) keep[i0 + 32] = kept >> (lane + 32) & 1;
+    }
+
+    // this warp's share of word t+1; the barrier also ends every read of
+    // dg and of share[t & 1] before they are written again
+    const int t1 = t + 1;
+    if (t1 < words && lane == (t1 & 31)) {
+#pragma unroll
+      for (int q = 0; q < WPL; ++q)
+        if (t1 >> 5 == q) share[t1 & 1][warp] = remv[q];
+    }
+    __syncthreads();
+  }
+}
+
+int launch_mask(const float* boxes, const uint8_t* valid, u64* mask, int batch, int n,
+                float thr, cudaStream_t stream) {
+  const int words = (n + kTile - 1) / kTile;
+  const dim3 grid(batch, words * (words + 1) / 2);
+  nms_iou_mask_kernel<<<grid, kTile, 0, stream>>>(reinterpret_cast<const float4*>(boxes),
+                                                  valid, mask, n, 32 * words_per_lane(words),
+                                                  thr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_sweep(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
+                 int batch, int n, float thr, void* stream_ptr) {
+  if (batch <= 0 || n <= 0 || n > kMaxWords * kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int err = launch_mask(boxes, valid, mask, batch, n, thr, stream)) return err;
+  const int wpl = words_per_lane((n + kTile - 1) / kTile), threads = kReduceWarps * 32;
+  if (wpl == 1)
+    nms_reduce_kernel<1><<<batch, threads, 0, stream>>>(mask, valid, keep, n);
+  else
+    nms_reduce_kernel<kMaxWordsPerLane><<<batch, threads, 0, stream>>>(mask, valid, keep, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,27 +336,34 @@ int launch(Kernel kernel, int blocks, int threads, const float* boxes,
 extern "C" {
 
 // boxes (batch, n, 4) f32 contiguous, 16-byte aligned; valid, keep (batch, n)
-// bytes (0/1). Returns the cudaError_t of the launch (0 on success).
-int yst_nms_sweep_batched(const float* boxes, const uint8_t* valid, uint8_t* keep,
+// bytes (0/1); mask (batch, n, yst_nms_mask_stride(n)) 64-bit words of
+// scratch, which need no initialisation. Returns the cudaError_t of the
+// launches (0 on success).
+int yst_nms_sweep_batched(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
                           int batch, int n, float thr, void* stream) {
-  return launch(nms_sweep_batched_kernel, batch, block_threads(n), boxes, valid, keep, n,
-                thr, stream);
+  return launch_sweep(boxes, valid, keep, mask, batch, n, thr, stream);
 }
 
-// boxes (n, 4), valid, keep (n,): one image, one block.
-int yst_nms_sweep_single(const float* boxes, const uint8_t* valid, uint8_t* keep,
+// boxes (n, 4), valid, keep (n,), mask (n, yst_nms_mask_stride(n)): one image.
+int yst_nms_sweep_single(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
                          int n, float thr, void* stream) {
-  return launch(nms_sweep_single_kernel, 1, block_threads(n), boxes, valid, keep, n, thr,
-                stream);
+  return launch_sweep(boxes, valid, keep, mask, 1, n, thr, stream);
 }
 
-// Largest n whose working set fits one block's shared memory on this device.
-int yst_nms_max_n(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess)
-    return 0;
-  return static_cast<int>(static_cast<size_t>(optin) / sweep_smem_bytes(1));
+// Phase 1 alone (for tests): writes the upper triangle of mask; valid may
+// be null.
+int yst_nms_iou_mask(const float* boxes, const uint8_t* valid, u64* mask, int batch, int n,
+                     float thr, void* stream) {
+  if (batch <= 0 || n <= 0 || n > kMaxWords * kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mask(boxes, valid, mask, batch, n, thr, static_cast<cudaStream_t>(stream));
 }
+
+// The mask's row stride in 64-bit words: ceil(n/64) rounded up to whole
+// lanes of the reduce (32 or 64), so that its loads take constant offsets.
+int yst_nms_mask_stride(int n) { return 32 * words_per_lane((n + kTile - 1) / kTile); }
+
+// Largest n: 64 pivots for each remv word the reduce holds.
+int yst_nms_max_n() { return kMaxWords * kTile; }
 
 }  // extern "C"

@@ -12,9 +12,13 @@ the NMS entry points built on them (port of ``ops/pallas_nms.py``).
 ==========================================  ====================================
 
 The kernels live in ``csrc/nms_sweep.cu`` (built with nvcc for sm_90a at
-first use, loaded with ctypes). A sweep wrapper runs the kernel on a CUDA
-tensor and the plain PyTorch version of the same sweep on a CPU tensor; any
-other device raises. ``launches`` counts kernel launches per wrapper.
+first use, loaded with ctypes). Each sweep runs in two phases: an IoU
+bitmask over all pairs, one 64-bit word per (row, 64 columns), then a
+serial reduce over 64-pivot blocks. A sweep wrapper launches both kernels
+on a CUDA tensor and runs the plain PyTorch version of the same sweep on a
+CPU tensor; any other device raises. ``launches`` counts wrapper calls that
+launched the kernels. :func:`nms_iou_mask_plain` and :func:`nms_reduce_plain`
+are the two phases in plain PyTorch, in the kernels' word layout.
 """
 
 from __future__ import annotations
@@ -48,12 +52,14 @@ def load_kernels() -> ctypes.CDLL:
         # every operation as the plain sweep and XLA do (exact keep masks)
         lib = ctypes.CDLL(str(build_cuda_library("yst_nms", [_SOURCE], ["-fmad=false"])))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yst_nms_sweep_batched.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
-        lib.yst_nms_sweep_batched.restype = i32
-        lib.yst_nms_sweep_single.argtypes = [ptr, ptr, ptr, i32, f32, ptr]
-        lib.yst_nms_sweep_single.restype = i32
-        lib.yst_nms_max_n.argtypes = [i32]
-        lib.yst_nms_max_n.restype = i32
+        lib.yst_nms_sweep_batched.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yst_nms_sweep_single.argtypes = [ptr, ptr, ptr, ptr, i32, f32, ptr]
+        lib.yst_nms_iou_mask.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yst_nms_mask_stride.argtypes = [i32]
+        lib.yst_nms_max_n.argtypes = []
+        for fn in (lib.yst_nms_sweep_batched, lib.yst_nms_sweep_single, lib.yst_nms_iou_mask,
+                   lib.yst_nms_mask_stride, lib.yst_nms_max_n):
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -93,12 +99,61 @@ def nms_sweep_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return nms_sweep_batched_plain(boxes[None], valid[None], iou_threshold)[0]
 
 
+# ------------------------------------------- the kernels' two phases, plain
+
+def nms_iou_mask_plain(boxes: torch.Tensor, iou_threshold: float,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase 1 in plain PyTorch: boxes (B, N, 4) -> words (B, N, W) int64,
+    W = ceil(N / 64). Bit k of ``words[b, i, w]`` is set iff j = 64 w + k
+    lies in i < j < N, boxes i and j are both valid (``valid`` (B, N) bool,
+    default all) and pivot i's IoU with j exceeds the threshold, in the
+    sweep's f32 operation order. Bit 63 is int64's sign bit; the words are
+    packed by OR, never by a sum."""
+    thr = _f32(iou_threshold)
+    B, n = boxes.shape[:2]
+    W = -(-n // 64)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    # [b, i, j]: pivot i (column vectors) against candidate j (row vectors)
+    w = (torch.minimum(x2[:, None], x2[..., None]) - torch.maximum(x1[:, None], x1[..., None]))
+    h = (torch.minimum(y2[:, None], y2[..., None]) - torch.maximum(y1[:, None], y1[..., None]))
+    inter = w.clamp(min=0) * h.clamp(min=0)
+    iou = inter / (area[:, None] + area[..., None] - inter + 1e-6)
+    idx = torch.arange(n, device=boxes.device)
+    bits = (iou > thr) & (idx[None, :] > idx[:, None])
+    if valid is not None:
+        bits &= valid[:, :, None] & valid[:, None, :]
+    bits = torch.nn.functional.pad(bits, (0, 64 * W - n)).reshape(B, n, W, 64).to(torch.int64)
+    words = torch.zeros((B, n, W), dtype=torch.int64, device=boxes.device)
+    for k in range(64):
+        words |= bits[..., k] << k
+    return words
+
+
+def nms_reduce_plain(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Phase 2 in plain PyTorch: words (B, N, W) from phase 1, valid (B, N)
+    bool -> keep (B, N) bool. Rows in order; pivot i is kept iff valid and
+    its bit of ``remv`` is clear, and a kept pivot ORs its words into
+    ``remv``. Like the kernel it reads a row's words from its own 64-pivot
+    block on (the words before it are the unwritten lower triangle)."""
+    B, n, W = words.shape
+    remv = torch.zeros((B, W), dtype=torch.int64, device=words.device)
+    keep = torch.zeros((B, n), dtype=torch.bool, device=words.device)
+    for i in range(n):
+        t, k = divmod(i, 64)
+        kept = valid[:, i] & (((remv[:, t] >> k) & 1) == 0)
+        keep[:, i] = kept
+        remv[:, t:] |= torch.where(kept[:, None], words[:, i, t:], 0)
+    return keep
+
+
 # ------------------------------------------------------------------- kernels
 
 @functools.cache
-def _max_n(device: int) -> int:
-    """Largest N whose sweep fits one block's shared memory on ``device``."""
-    return load_kernels().yst_nms_max_n(device)
+def _max_n() -> int:
+    """Largest N the reduce takes: 64 pivots for each ``remv`` word it holds
+    in registers."""
+    return load_kernels().yst_nms_max_n()
 
 
 def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
@@ -113,26 +168,63 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     if not (boxes.is_contiguous() and valid.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("kernel needs contiguous inputs and 16-byte aligned boxes")
     n = boxes.shape[-2]
-    max_n = _max_n(boxes.device.index or 0)
-    if n > max_n:
-        raise ValueError(f"N={n} exceeds the {max_n} boxes one block's shared memory holds")
+    if n > _max_n():
+        raise ValueError(f"N={n} exceeds the {_max_n()} boxes of the {_max_n() // 64} remv "
+                         "words the reduce holds")
+
+
+@functools.cache
+def _mask_stride(n: int) -> int:
+    return load_kernels().yst_nms_mask_stride(n)
+
+
+def _mask_words(boxes: torch.Tensor) -> torch.Tensor:
+    """Phase 1's scratch, (B, N, stride) int64 with W = ceil(N/64) <= stride
+    (the reduce's lanes, so that its loads take constant offsets), left
+    uninitialised: the mask kernel writes the upper triangle of the first W
+    words, the only words the reduce reads."""
+    n = boxes.shape[-2]
+    return torch.empty((*boxes.shape[:-2], n, _mask_stride(n)), dtype=torch.int64,
+                       device=boxes.device)
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _launch(name: str, boxes: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
     _check(boxes, valid)
     keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+    mask = _mask_words(boxes)
     lib = load_kernels()
-    with torch.cuda.device(boxes.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        ptrs = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr())
-        if name == "nms_sweep_batched":
-            err = lib.yst_nms_sweep_batched(*ptrs, boxes.shape[0], boxes.shape[1], thr, stream)
-        else:
-            err = lib.yst_nms_sweep_single(*ptrs, boxes.shape[0], thr, stream)
+    ptrs = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr())
+    if name == "nms_sweep_batched":
+        err = lib.yst_nms_sweep_batched(*ptrs, boxes.shape[0], boxes.shape[1], thr,
+                                        _stream(boxes.device))
+    else:
+        err = lib.yst_nms_sweep_single(*ptrs, boxes.shape[0], thr, _stream(boxes.device))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
     return keep
+
+
+def _iou_mask(boxes: torch.Tensor, iou_threshold: float,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase 1 alone on the card (for tests): boxes (B, N, 4) CUDA f32,
+    valid (B, N) bool or None (all) -> the mask kernel's words (B, N, W)
+    int64, zero where it writes nothing (the lower triangle), so they
+    compare whole with :func:`nms_iou_mask_plain`. A view of the padded
+    scratch."""
+    _check(boxes, torch.ones(boxes.shape[:-1], dtype=torch.bool, device=boxes.device)
+           if valid is None else valid)
+    mask = torch.zeros_like(_mask_words(boxes))
+    err = load_kernels().yst_nms_iou_mask(
+        boxes.data_ptr(), None if valid is None else valid.data_ptr(), mask.data_ptr(),
+        boxes.shape[0], boxes.shape[1], _f32(iou_threshold), _stream(boxes.device))
+    if err:
+        raise RuntimeError(f"nms_iou_mask kernel launch failed: cudaError {err}")
+    return mask[..., :-(-boxes.shape[-2] // 64)]
 
 
 def _dispatch(name, plain, boxes, valid, iou_threshold):
@@ -149,17 +241,17 @@ def _dispatch(name, plain, boxes, valid, iou_threshold):
 
 def nms_sweep_batched(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                       iou_threshold: float = 0.45) -> torch.Tensor:
-    """Batched greedy suppression, kernel #1 (one block per image):
-    boxes (B, N, 4) xyxy with each row score-descending, valid (B, N) ->
-    keep (B, N) bool."""
+    """Batched greedy suppression, kernel #1 (the IoU mask over the whole
+    card, then a reduce of four warps per image): boxes (B, N, 4) xyxy with
+    each row score-descending, valid (B, N) -> keep (B, N) bool."""
     return _dispatch("nms_sweep_batched", nms_sweep_batched_plain,
                      boxes_sorted, valid_sorted, iou_threshold)
 
 
 def nms_sweep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
               iou_threshold: float = 0.45) -> torch.Tensor:
-    """Single-image greedy suppression, kernel #2 (one block):
-    boxes (N, 4) score-descending, valid (N,) -> keep (N,) bool."""
+    """Single-image greedy suppression, kernel #2 (kernel #1's two phases
+    at B = 1): boxes (N, 4) score-descending, valid (N,) -> keep (N,) bool."""
     return _dispatch("nms_sweep", nms_sweep_plain, boxes_sorted, valid_sorted, iou_threshold)
 
 

@@ -33,7 +33,7 @@ import torch
 from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck
 from yolo_scratch_tpu_torch.ops import conv_kernels as CK
-from yolo_scratch_tpu_torch.utils.cuda_timing import device_ms, kernel_ms
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms
 from yolo_scratch_tpu_torch.utils.device import resolve_device
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): bf16 tensor cores,
@@ -168,7 +168,8 @@ def time_case(case: Case) -> dict:
     xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor: channels_last
 
     with torch.inference_mode(), CK.full_f32():  # an f32 yardstick without TF32
-        ms = kernel_ms(lambda: CK.fused_bottleneck(*case.inputs), "fused_bottleneck_kernel", REPS)
+        ms = call_ms(lambda: CK.fused_bottleneck(*case.inputs), ("fused_bottleneck_kernel",),
+                     REPS)[0]
         library = device_ms(lambda: module(xc), REPS)
         plain = device_ms(lambda: CK.bottleneck_plain(*case.inputs), REPS // 4)
     bms, by = bound_ms(B, H, W, C, w1.shape[-1], x.dtype)

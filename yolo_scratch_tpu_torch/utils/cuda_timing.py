@@ -1,9 +1,11 @@
 """Device times on the card, for ``chip_smoke.py`` and the probes.
 
-``kernel_ms`` and ``device_ms`` read a ``torch.profiler`` trace: the sum of
+``call_ms`` and ``device_ms`` read a ``torch.profiler`` trace: the sum of
 device time the trace records, so the wrapper's host work is not in them (a
 short launch ends before the next call has been enqueued, and CUDA events
-around the calls would time the host). ``time_ms`` uses CUDA events around
+around the calls would time the host). ``call_ms`` sums the kernels one
+call launches (one for the bottleneck; the NMS sweep's mask and reduce)
+and gives each one's time. ``time_ms`` uses CUDA events around
 back-to-back calls: device time where the device is the bottleneck, the
 host's launch time where it is not.
 """
@@ -29,15 +31,23 @@ def _trace(fn: Callable[[], object], reps: int):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def kernel_ms(fn: Callable[[], object], kernel: str, reps: int = 50) -> float:
-    """Mean device time of one launch of the CUDA kernel whose symbol holds
-    ``kernel``, over ``reps`` calls of ``fn``."""
-    rows = [e for e in _trace(fn, reps) if kernel in e.key]
-    # the trace may drop an event or two of a window; average what it holds
-    seen = sum(e.count for e in rows)
-    if seen < reps // 2:
-        raise AssertionError(f"profiler saw {seen} of {reps} launches of {kernel}")
-    return sum(e.self_device_time_total for e in rows) / seen / 1e3
+def call_ms(fn: Callable[[], object], kernels: tuple[str, ...],
+            reps: int = 50) -> tuple[float, dict[str, float]]:
+    """Device time of one call of ``fn`` that launches each kernel of
+    ``kernels`` (symbol substrings) once: their times summed, and each
+    kernel's own, over ``reps`` calls. Each kernel must be seen about
+    ``reps`` times (at most ``reps``; the trace may drop a few events), and
+    each is averaged over the launches the trace holds, so a dropped event
+    does not read as a shorter call."""
+    rows = _trace(fn, reps)
+    split = {}
+    for kernel in kernels:
+        hits = [e for e in rows if kernel in e.key]
+        seen = sum(e.count for e in hits)
+        if not reps // 2 <= seen <= reps:
+            raise AssertionError(f"profiler saw {seen} launches of {kernel} in {reps} calls")
+        split[kernel] = sum(e.self_device_time_total for e in hits) / seen / 1e3
+    return sum(split.values()), split
 
 
 def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
