@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
 3. kernels: each NMS wrapper against its plain version on seeded boxes
    (exactly equal keep masks), with its device time per call (the IoU mask
    and reduce kernels summed, and each on its own), the plain version's
-   time and its bound at the main path's shape, and at N=2048;
+   time and its bound at the main path's shape, and at N=2048; and #1 at
+   B=32/N=512 with no box valid, the main path's data at conf 0.25;
 4. slice: YOLO11n at 640x640 (crater row ch=1/nc=5, COCO row ch=3/nc=80),
    seeded init, through ``Predictor.predict_batch`` at B=32. The launch
    counters are zeroed just before each path and read just after. Checks:
@@ -141,14 +142,19 @@ def bound(keep: torch.Tensor, n: int) -> tuple[float, str]:
 
 def kernel_phase(dev) -> dict:
     """Each kernel vs its plain version; timed at the main path's shape
-    (B=32/N=512 and B=1/N=512) and at N=2048."""
+    (B=32/N=512 and B=1/N=512) and at N=2048, on seeded boxes ~90% valid,
+    and at B=32/N=512 with none valid, as the main path's seeded model
+    gives at conf 0.25."""
     results = {}
     cases = [("nms_sweep_batched", (32, 512)), ("nms_sweep_batched", (32, 2048)),
-             ("nms_sweep", (512,)), ("nms_sweep", (2048,))]
+             ("nms_sweep", (512,)), ("nms_sweep", (2048,)), ("nms_sweep_batched", (32, 512))]
     for i, (name, shape) in enumerate(cases):
         spec = KERNELS[name]
         wrapper = getattr(K, name)
         boxes, valid = seeded_boxes(100 + i, shape, dev)
+        none_valid = i == len(cases) - 1
+        if none_valid:
+            valid = torch.zeros_like(valid)
         got = wrapper(boxes, valid, IOU)
         ref = spec["plain"](boxes, valid, IOU)
         torch.cuda.synchronize()
@@ -160,13 +166,14 @@ def kernel_phase(dev) -> dict:
         wall_ms = time_ms(lambda: wrapper(boxes, valid, IOU), reps=50)
         plain_ms = time_ms(lambda: spec["plain"](boxes, valid, IOU), reps=1, windows=3)
         bound_ms, bound_by = bound(got, shape[-1])
-        log(f"kernel {name} shape={shape}: exact (max_abs_err {err}), kept {int(got.sum())}, "
+        log(f"kernel {name} shape={shape}{' none valid' if none_valid else ''}: exact "
+            f"(max_abs_err {err}), kept {int(got.sum())}, "
             f"{ms:.4f} ms on the card per call (mask {split[NMS_SYMBOLS[0]]:.4f} + reduce "
             f"{split[NMS_SYMBOLS[1]]:.4f}), {wall_ms:.4f} ms per wrapper call, "
             f"{plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
             f"({bound_by}); no single PyTorch call computes greedy NMS, so no library "
             f"yardstick")
-        if shape[-1] == 512:  # the main path's K
+        if shape[-1] == 512 and not none_valid:  # the main path's K
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return results

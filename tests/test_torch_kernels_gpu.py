@@ -106,12 +106,27 @@ def test_kernel_negative_threshold_matches_plain(cuda):
 @pytest.mark.parametrize("share", [0.0, 0.02, 0.5])
 def test_kernel_sparse_valid_matches_plain(cuda, share):
     """Mostly invalid candidates, as at conf 0.25: whole 64-pivot blocks
-    with nothing to resolve are skipped."""
+    with no pivot to keep."""
     boxes, _ = _inputs(9, (4, 700), cuda, 200.0)
     valid = torch.rand((4, 700), generator=torch.Generator().manual_seed(1)) < share
     valid = valid.to(cuda)
     assert torch.equal(K.nms_sweep_batched(boxes, valid, 0.45),
                        K.nms_sweep_batched_plain(boxes, valid, 0.45))
+
+
+def test_kernel_runs_on_a_card_that_is_not_current(cuda):
+    """Tensors on cuda:1 while cuda:0 is current: the wrappers launch on
+    the tensors' card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    dev = torch.device("cuda", 1)
+    boxes, valid = _inputs(11, (2, 300), dev)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(K.nms_sweep_batched(boxes, valid, 0.45),
+                       K.nms_sweep_batched_plain(boxes, valid, 0.45))
+    assert torch.equal(K.nms_sweep(boxes[0], valid[0], 0.45),
+                       K.nms_sweep_plain(boxes[0], valid[0], 0.45))
+    assert torch.equal(K._iou_mask(boxes, 0.45), K.nms_iou_mask_plain(boxes, 0.45))
 
 
 def test_kernel_wrapper_rejects_bad_input(cuda):

@@ -33,17 +33,15 @@
 // Phase 2, nms_reduce_kernel: four warps per image walk its ceil(n/64)
 // blocks of 64 pivots in order, with the suppression words (remv) in
 // registers, word w in lane w % 32. For block t, every warp resolves the 64
-// pivots against their diagonal words (mask[i][t], loaded two blocks ahead
+// pivots against their diagonal words (mask[i][t], loaded a block ahead
 // and staged in shared memory): pivot k is kept iff its valid bit is set
 // and its remv bit clear, and a kept pivot's word is ORed in -- three
-// dependent integer operations a pivot. A block with at most 16 pivots
-// still open (valid, not yet suppressed) resolves only those, one step per
-// kept pivot; a block with none skips the resolve. Warp g then ORs the kept
+// dependent integer operations a pivot. Warp g then ORs the kept
 // rows among the block's rows 16g .. 16g+15 into its share of the later
 // remv words (their loads issued before the resolve, so the round trip to
 // L2 runs under it), and the four shares of word t+1 meet in shared memory
 // once a block. What bounds it: the chain of ceil(n/64) blocks, each a
-// resolve of up to 64 dependent steps and a block-wide barrier. The mask's
+// resolve of 64 dependent steps and a block-wide barrier. The mask's
 // rows are padded to the reduce's 32 or 64 lanes of words
 // (yst_nms_mask_stride), so its loads take constant offsets; the words a
 // lane holds set the largest n (yst_nms_max_n).
@@ -64,7 +62,6 @@ constexpr int kMaxWordsPerLane = 2;  // remv words one reduce lane holds
 constexpr int kMaxWords = 32 * kMaxWordsPerLane;
 constexpr int kReduceWarps = 4;      // a reduce block's warps; each ORs 16 rows of a block
 constexpr int kRowsPerWarp = kTile / kReduceWarps;
-constexpr int kSparse = 16;  // open pivots up to which a block resolves them one by one
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // remv words a reduce lane holds for ceil(n/64) words: 1 or 2
@@ -206,8 +203,7 @@ __global__ void __launch_bounds__(kReduceWarps * 32)
   __syncthreads();
 
   // block t's diagonal words and valid flags, rows 64t + lane and 64t + 32 + lane,
-  // loaded two blocks ahead (a block with little to resolve is shorter than
-  // a round trip to L2)
+  // loaded one block ahead
   struct Block {
     u64 d0, d1;
     bool v0, v1;
@@ -221,15 +217,14 @@ __global__ void __launch_bounds__(kReduceWarps * 32)
     b.d1 = i1 < n ? mask[static_cast<size_t>(i1) * kStride + t] : 0;
     return b;
   };
-  Block cur = load_block(0), next = load_block(1);
+  Block cur = load_block(0);
   for (int t = 0; t < words; ++t) {
     u64* dg = diag[warp];
     dg[lane] = cur.d0;
     dg[lane + 32] = cur.d1;
     const u64 vbits = __ballot_sync(kFullWarp, cur.v0) |
                       static_cast<u64>(__ballot_sync(kFullWarp, cur.v1)) << 32;
-    cur = next;
-    next = load_block(t + 2);  // in flight during the next two blocks
+    cur = load_block(t + 1);  // in flight during this block
 
     // This warp's 16 rows of the block, their later words (which rows are
     // kept is not known yet). With one word a lane they are loaded here, so
@@ -249,28 +244,16 @@ __global__ void __launch_bounds__(kReduceWarps * 32)
 #pragma unroll
     for (int g = 0; g < kReduceWarps; ++g) r |= share[t & 1][g];
     __syncwarp();  // dg is visible to every lane
-    u64 kept = 0;
-    const u64 open = ~r;  // the block's pivots still to resolve (uniform)
-    if (__popcll(open) <= kSparse) {
-      // Few open pivots (as at a high confidence threshold): the lowest is
-      // kept; drop it and every pivot it suppresses; repeat.
-      for (u64 c = open; c;) {
-        const u64 low = c & (0 - c);
-        kept |= low;
-        c &= ~low & ~dg[__ffsll(static_cast<long long>(c)) - 1];
-      }
-    } else {
-      unsigned lo = static_cast<unsigned>(r), hi = static_cast<unsigned>(r >> 32);
+    unsigned lo = static_cast<unsigned>(r), hi = static_cast<unsigned>(r >> 32);
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
-        const u64 d = dg[k];
-        resolve_lo(lo, hi, 1u << k, static_cast<unsigned>(d), static_cast<unsigned>(d >> 32));
-      }
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        resolve_hi(hi, 1u << k, static_cast<unsigned>(dg[32 + k] >> 32));
-      kept = ~(static_cast<u64>(hi) << 32 | lo);
+    for (int k = 0; k < 32; ++k) {
+      const u64 d = dg[k];
+      resolve_lo(lo, hi, 1u << k, static_cast<unsigned>(d), static_cast<unsigned>(d >> 32));
     }
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      resolve_hi(hi, 1u << k, static_cast<unsigned>(dg[32 + k] >> 32));
+    const u64 kept = ~(static_cast<u64>(hi) << 32 | lo);
     if (kept) {
       // this warp's kept rows' words w > t, into the lanes that hold them
       const unsigned mine = static_cast<unsigned>(kept >> (warp * kRowsPerWarp)) & 0xffffu;

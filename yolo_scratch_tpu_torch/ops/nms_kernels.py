@@ -188,8 +188,8 @@ def _mask_words(boxes: torch.Tensor) -> torch.Tensor:
                        device=boxes.device)
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def _launch(name: str, boxes: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
@@ -198,11 +198,12 @@ def _launch(name: str, boxes: torch.Tensor, valid: torch.Tensor, thr: float) -> 
     mask = _mask_words(boxes)
     lib = load_kernels()
     ptrs = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr())
-    if name == "nms_sweep_batched":
-        err = lib.yst_nms_sweep_batched(*ptrs, boxes.shape[0], boxes.shape[1], thr,
-                                        _stream(boxes.device))
-    else:
-        err = lib.yst_nms_sweep_single(*ptrs, boxes.shape[0], thr, _stream(boxes.device))
+    with torch.cuda.device(boxes.device):  # the runtime launches on the current device
+        if name == "nms_sweep_batched":
+            err = lib.yst_nms_sweep_batched(*ptrs, boxes.shape[0], boxes.shape[1], thr,
+                                            _stream())
+        else:
+            err = lib.yst_nms_sweep_single(*ptrs, boxes.shape[0], thr, _stream())
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
@@ -219,9 +220,10 @@ def _iou_mask(boxes: torch.Tensor, iou_threshold: float,
     _check(boxes, torch.ones(boxes.shape[:-1], dtype=torch.bool, device=boxes.device)
            if valid is None else valid)
     mask = torch.zeros_like(_mask_words(boxes))
-    err = load_kernels().yst_nms_iou_mask(
-        boxes.data_ptr(), None if valid is None else valid.data_ptr(), mask.data_ptr(),
-        boxes.shape[0], boxes.shape[1], _f32(iou_threshold), _stream(boxes.device))
+    with torch.cuda.device(boxes.device):
+        err = load_kernels().yst_nms_iou_mask(
+            boxes.data_ptr(), None if valid is None else valid.data_ptr(), mask.data_ptr(),
+            boxes.shape[0], boxes.shape[1], _f32(iou_threshold), _stream())
     if err:
         raise RuntimeError(f"nms_iou_mask kernel launch failed: cudaError {err}")
     return mask[..., :-(-boxes.shape[-2] // 64)]
