@@ -34,7 +34,19 @@ Phases (any failure raises and exits non-zero):
    and on the border rows and columns, and the check must reject both zeros
    and x itself (a skipped branch). Then times: the
    kernel, the folded module on cuDNN (the library yardstick) and the plain
-   version at each shape, beside the bound.
+   version at each shape, beside the bound;
+6. eval: the crater YOLO11n (seeded init, random BN statistics, zeroed
+   class-bias priors, as ``tests/test_torch_infer.py`` builds it) in f32
+   with TF32 off, through the eval step at 640, B=32, where kernel #1 sweeps
+   the top 2048 candidates of each image. (a) ``val.main`` on the synthetic
+   set, 2 batches, ``--per-class --coco-summary --torch-ckpt``, kernel #1's
+   counter zeroed just before and read just after; the JSON must hold the
+   JAX CLI's keys, all finite. (b) one batch: the step's detections equal
+   the same maps put through ``nms_sweep_batched_plain`` exactly, and its
+   marks (plain and per-class) equal ``batched_tp_marks`` run on the CPU
+   on the same detections exactly. (c) the card's loss triplet equals the
+   CPU's on two images, rtol 1e-4. (d) the step's img/s at B=32, its
+   phases (H2D, forward, loss, select+NMS, marks) and its device busy share.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -44,6 +56,7 @@ and exits 1.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -59,7 +72,9 @@ from yolo_scratch_tpu_torch.infer import (
     load_deploy_model,
     pack_detections,
 )
-from yolo_scratch_tpu_torch.models.builder import CONFIGS
+from yolo_scratch_tpu_torch.data.loader import Loader
+from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
 from yolo_scratch_tpu_torch.nn.fuse import bottleneck_weights
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck, detect_decode
 from yolo_scratch_tpu_torch.ops import conv_kernels as CK
@@ -68,9 +83,13 @@ from yolo_scratch_tpu_torch.ops.decode import (
     _finish,
     _prefilter_batched,
     postprocess,
+    postprocess_from_feats,
     select_candidates,
 )
-from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, time_ms
+from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS, batched_tp_marks
+from yolo_scratch_tpu_torch.train.steps import batch_to_device, make_eval_step, precision_scope
+from yolo_scratch_tpu_torch.utils.build import BUILD_DIR
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, time_ms
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): HBM bytes/s and
 # f32 (non-tensor-core) FLOP/s. The NMS sweep is f32 compare/divide work.
@@ -389,6 +408,170 @@ def bottleneck_phase(dev, ident: str) -> dict:
     return dict(row=row, launches=probe_launches + contract_launches)
 
 
+# the eval path (phase 6): the step's candidate cap and batch, and the keys
+# the JAX package's val CLI prints for --per-class --coco-summary at nc=5
+EVAL_TOPK, EVAL_BATCHES = 2048, 2
+EVAL_KEYS = (["loss", "precision", "recall", "mAP50", "mAP50-95"]
+             + [f"class/{c}/{k}" for c in range(5)
+                for k in ("AP50", "AP50-95", "precision", "recall")]
+             + [f"coco/{k}" for k in ("AP", "AP50", "AP75", "AR@1", "AR@10", "AR@100")]
+             + [f"coco/{k}_{band}" for band in ("small", "medium", "large")
+                for k in ("AP", "AR@100")]
+             + [f"coco/{k}" for k in ("AP_strict", "AP50_strict", "AP75_strict",
+                                      "classes_evaluated")])
+LOSS_KEYS = ("loss", "box_loss", "cls_loss", "dfl_loss")
+
+
+def eval_model():
+    """The crater YOLO11n as tests/test_torch_infer.py builds it: seeded
+    init, random BN statistics, class-bias priors zeroed (the prior alone
+    puts every score near 1.6e-4, below any gate)."""
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=7)
+    rng = np.random.RandomState(7)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, v in ((m.weight, rng.uniform(0.3, 0.8, n)), (m.bias, rng.normal(0, 0.2, n)),
+                             (m.running_mean, rng.normal(0, 0.1, n)),
+                             (m.running_var, rng.uniform(0.5, 1.5, n))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+        for cls in model.model[-1].cv3:
+            cls[2].bias.zero_()
+    return model.eval()
+
+
+def eval_phase_times(step, batch, reps: int = 5) -> dict:
+    """Median ms of each phase of one eval step, run in sequence between
+    CUDA events (so a phase includes the device's waits for the host)."""
+    names = ["h2d", "forward", "loss", "select_nms", "marks"]
+    samples = {n: [] for n in names}
+    m = step.model
+    for _ in range(reps + 1):  # the first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        b = batch_to_device(batch, step.device)
+        ev[1].record()
+        feats = step.forward(b)
+        ev[2].record()
+        with precision_scope("highest"), torch.inference_mode():
+            step.loss_fn(feats, b)
+            ev[3].record()
+            boxes, _, labels, valid, _ = postprocess_from_feats(
+                feats, nc=m.nc, strides=m.strides, reg_max=m.reg_max, img_size=IMGSZ,
+                pre_nms_topk=EVAL_TOPK, with_cand_count=True, nms_impl="kernel")
+            ev[4].record()
+            batched_tp_marks(boxes, valid, b["gt_bboxes"], b["gt_mask"], DEFAULT_THRESHOLDS)
+            batched_tp_marks(boxes, valid, b["gt_bboxes"], b["gt_mask"], DEFAULT_THRESHOLDS,
+                             pred_labels=labels, gt_labels=b["gt_labels"])
+            ev[5].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    return {n: statistics.median(v[1:]) for n, v in samples.items()}
+
+
+def eval_phase(dev, ident: str) -> dict:
+    """The eval path: val.main, then one batch held against the plain sweep
+    and the CPU, then times."""
+    from yolo_scratch_tpu_torch import val
+
+    B = BATCH
+    weights = BUILD_DIR / "eval_smoke_weights.pt"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(eval_model().state_dict(), weights)
+
+    # (a) the entry point a user calls, counts zeroed just before
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = val.main(["--data", "synthetic", "--imgsz", str(IMGSZ), "--batch", str(B),
+                    "--max-batches", str(EVAL_BATCHES), "--per-class", "--coco-summary",
+                    "--torch-ckpt", str(weights)])
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    launches = K.launches["nms_sweep_batched"]
+    log(f"eval path (val.main, {EVAL_BATCHES} batches of {B} at {IMGSZ}, --per-class "
+        f"--coco-summary): launches {dict(K.launches)}, {val_s:.1f} s")
+    if launches == 0:
+        raise AssertionError("val.main never launched the batched NMS kernel")
+    if list(out) != EVAL_KEYS:
+        raise AssertionError(f"val.main printed keys {list(out)}, want the JAX CLI's")
+    bad = {k: v for k, v in out.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"val.main printed non-finite values {bad}")
+    log(f"eval metrics: loss {out['loss']:.4f}, mAP50 {out['mAP50']:.4g}, mAP50-95 "
+        f"{out['mAP50-95']:.4g}, coco/AP {out['coco/AP']:.4g} (random weights)")
+
+    # (b) one batch: the step's detections vs the plain sweep, marks vs the CPU
+    batch = next(iter(Loader(SyntheticDataset(n=64, img_size=IMGSZ), B, max_gt=100,
+                             prefetch=0)))
+    model = eval_model().to(dev)
+    step = make_eval_step(model, match_thresholds=DEFAULT_THRESHOLDS, per_class=True)
+    b = batch_to_device(batch, dev)
+    feats = step.forward(b)
+    K.reset_launches()
+    metrics, dets, marks, marks_cls = step.from_feats(feats, b)
+    torch.cuda.synchronize()
+    if K.launches["nms_sweep_batched"] != 1:
+        raise AssertionError(f"one eval step launched kernel #1 {K.launches} times")
+    with torch.inference_mode():
+        boxes, scores, labels, valid, conf_ok = select_candidates(
+            feats, model.nc, model.strides, model.reg_max, 0.25, EVAL_TOPK)
+        swept = K.nms_sweep_batched_plain(boxes, valid, IOU)
+        ref = _finish(boxes, scores, labels, K._cap(swept, 300), 300, IMGSZ)
+    if not all(torch.equal(g, r) for g, r in zip(dets, ref)):
+        raise AssertionError("eval-step detections differ from the plain sweep's")
+    cand = conf_ok.sum(-1)
+    # kernel #1 on the eval path's own candidates (after the count was read)
+    ms, split = call_ms(lambda: K.nms_sweep_batched(boxes, valid, IOU), NMS_SYMBOLS)
+    bound_ms, bound_by = bound(swept, boxes.shape[1])
+    log(f"eval step, one batch: detections equal the plain sweep's exactly; above-conf "
+        f"candidates per image {int(cand.min())}-{int(cand.max())}, {int(valid.sum())} swept "
+        f"(N={boxes.shape[1]}), {int((cand > EVAL_TOPK).sum())} of {B} images over the cap "
+        f"(prefilter_saturated {float(metrics['prefilter_saturated']):.3f}), "
+        f"{int(swept.sum())} survive the sweep, {int(dets[3].sum())} kept (max_det 300); "
+        f"kernel #1 on these candidates {ms:.4f} ms per call (mask "
+        f"{split[NMS_SYMBOLS[0]]:.4f} + reduce {split[NMS_SYMBOLS[1]]:.4f}), bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    pb, _, pl, pv = (t.cpu() for t in dets)
+    gt = {k: torch.from_numpy(batch[k]) for k in ("gt_bboxes", "gt_mask", "gt_labels")}
+    cpu_marks = batched_tp_marks(pb, pv, gt["gt_bboxes"], gt["gt_mask"])
+    cpu_marks_cls = batched_tp_marks(pb, pv, gt["gt_bboxes"], gt["gt_mask"], pred_labels=pl,
+                                     gt_labels=gt["gt_labels"])
+    if not (torch.equal(marks.cpu(), cpu_marks) and torch.equal(marks_cls.cpu(), cpu_marks_cls)):
+        raise AssertionError("eval-step marks differ from the CPU's on the same detections")
+    log(f"eval step marks equal the CPU's exactly ({int(cpu_marks.sum())} TP marks, "
+        f"{int(cpu_marks_cls.sum())} class-restricted)")
+
+    # (c) the loss triplet, card vs CPU, on two images, TF32 off
+    two = {k: v[:2] for k, v in batch.items()}
+    got = step(two)[0]
+    ref = make_eval_step(eval_model())(two)[0]
+    rel = {k: abs(float(got[k]) - float(ref[k])) / abs(float(ref[k])) for k in LOSS_KEYS}
+    log(f"eval loss on 2 images, card vs CPU (TF32 off): "
+        + ", ".join(f"{k} {float(got[k]):.6f} / {float(ref[k]):.6f}" for k in LOSS_KEYS)
+        + f"; max rel {max(rel.values()):.3g} (limit 1e-4)")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"card loss differs from the CPU's: {rel}")
+
+    # (d) times
+    step(batch)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    phases = eval_phase_times(step, batch)
+    dev_ms = device_ms(lambda: step(batch), reps=3)
+    log(f"eval step at B={B}, {IMGSZ}x{IMGSZ} (f32, TF32 off, N={EVAL_TOPK}): "
+        f"{B / wall * 1e3:.1f} img/s, {wall:.2f} ms/batch wall, {dev_ms:.2f} ms device "
+        f"(busy {dev_ms / wall:.3f}); phases ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()) + f" on {ident}")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -411,8 +594,10 @@ def main() -> int:
     sl = slice_phase(dev, ident)
     bn = bottleneck_phase(dev, ident)
     timed["fused_bottleneck"] = bn["row"]
+    ev = eval_phase(dev, ident)
 
-    launches = {"nms_sweep_batched": sl["main"]["nms_sweep_batched"],
+    # kernel #1 runs on two paths: the Predictor's and the eval step's
+    launches = {"nms_sweep_batched": sl["main"]["nms_sweep_batched"] + ev["launches"],
                 "nms_sweep": sl["b1"]["nms_sweep"], "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
                   launches=launches[name], **timed[name])

@@ -213,3 +213,43 @@ def test_bottleneck_wrapper_rejects_bad_input(cuda):
         CK._launch(*_bneck_inputs(0, 1, 4, 4, 8192, 16, torch.bfloat16, cuda))
     with pytest.raises(ValueError):
         CK._launch(x, w1, b1.cpu(), w2, b2)
+
+
+def test_eval_step_runs_kernel_1_and_matches_plain_and_cpu_marks(cuda):
+    """The eval step (``train/steps.py``) at B=2, 64 px on the card: it
+    launches kernel #1 once; its detections equal the same maps put through
+    the plain sweep, exactly; its marks (plain and per-class) equal
+    ``batched_tp_marks`` run on the CPU on the same detections, exactly."""
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+    from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+    from yolo_scratch_tpu_torch.ops.decode import _finish, select_candidates
+    from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS, batched_tp_marks
+    from yolo_scratch_tpu_torch.train.steps import batch_to_device, make_eval_step
+
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, seed=7)
+    with torch.no_grad():
+        for cls in model.model[-1].cv3:  # zeroed class priors: scores near 0.5
+            cls[2].bias.zero_()
+    model = model.to(cuda).eval()
+    step = make_eval_step(model, match_thresholds=DEFAULT_THRESHOLDS, per_class=True)
+    batch = next(iter(Loader(SyntheticDataset(n=2, img_size=64), 2, max_gt=8, prefetch=0)))
+    b = batch_to_device(batch, cuda)
+    feats = step.forward(b)
+    before = K.launches["nms_sweep_batched"]
+    out = step.from_feats(feats, b)
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before + 1
+    with torch.inference_mode():
+        boxes, scores, labels, valid, _ = select_candidates(
+            feats, model.nc, model.strides, model.reg_max, 0.25, 2048)
+        keep = K._cap(K.nms_sweep_batched_plain(boxes, valid, 0.45), 300)
+        ref = _finish(boxes, scores, labels, keep, 300, 64)
+    assert valid.any()
+    for g, r in zip(out[1], ref):
+        assert torch.equal(g, r)
+    pb, _, pl, pv = (t.cpu() for t in out[1])
+    gb, gm, gl = (torch.from_numpy(batch[k]) for k in ("gt_bboxes", "gt_mask", "gt_labels"))
+    assert torch.equal(out[2].cpu(), batched_tp_marks(pb, pv, gb, gm))
+    assert torch.equal(out[3].cpu(), batched_tp_marks(pb, pv, gb, gm, pred_labels=pl,
+                                                      gt_labels=gl))

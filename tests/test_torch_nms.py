@@ -216,3 +216,38 @@ def test_sweep_rejects_unsupported_device():
     valid = torch.ones((1, 8), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tk.nms_sweep_batched(boxes, valid)
+
+
+@pytest.mark.parametrize("iou", [0.45, 0.5, 0.7])
+def test_sweep_batched_plain_matches_jax_xla_at_eval_cap(iou):
+    """The eval step's NMS: the port runs kernel #1 (its plain version on
+    the CPU) where the JAX eval step runs the XLA sweep (``ops/nms.py::nms``,
+    presorted, vmapped). Keep sets must be equal at the step's cap, N=2048.
+    Besides dense random boxes, each image holds 100 planted triples: a
+    20x20 box, the same box cut to height 20*iou (IoU 400*iou/400, exactly
+    the threshold in f32: the union's 1e-6 vanishes at 400) and one cut half
+    a pixel taller (just above it)."""
+    rng = np.random.RandomState(int(iou * 100))
+    B, n, t = 2, 2048, 100
+    boxes = _boxes(rng, (B, n), 160.0, 40.0, 5.0)
+    xy = rng.randint(0, 160, (B, t, 1, 2)).astype(np.float32)
+    h = np.array([20.0, 20.0 * iou, 20.0 * iou + 0.5], np.float32)
+    planted = np.concatenate([np.broadcast_to(xy, (B, t, 3, 2)),
+                              xy + np.stack([np.full(3, 20.0, np.float32), h], -1)], -1)
+    boxes[:, : 3 * t] = planted.reshape(B, 3 * t, 4)
+    valid = rng.rand(B, n) > 0.1
+    valid[:, : 3 * t] = True
+    sweep = jax.jit(jax.vmap(lambda b, v: jax_nms(b, jax.numpy.zeros(n), iou, max_det=n,
+                                                  valid=v, presorted=True)))
+    ref = np.asarray(sweep(boxes, valid))
+    got = tk.nms_sweep_batched(_t(boxes), _t(valid), iou).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < got.sum() < valid.sum()
+    # the planted ties are ties: IoU == threshold in f32, and the box at the
+    # threshold survives its 20x20 pivot where the taller one does not
+    a, b = _t(planted[0, :, 0]), _t(planted[0, :, 1])
+    inter = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    area = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    assert bool((inter / (area + inter - inter + 1e-6) == float(np.float32(iou))).all())
+    kept = got[:, : 3 * t].reshape(B, t, 3)
+    assert (kept[..., 0] & kept[..., 1]).any() and not (kept[..., 0] & kept[..., 2]).any()

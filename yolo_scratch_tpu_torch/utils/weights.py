@@ -53,3 +53,22 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         out[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr, dtype=np.float32))
         out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load a reference-layout checkpoint (``last.pt``/``best.pt``, or a bare
+    ``state_dict``) into ``model`` in place, as the JAX package's
+    ``utils/torch_import.py::load_reference_checkpoint`` reads one: the
+    state_dict under ``model_state_dict`` or ``model``, else the file
+    itself; the reference's frozen DFL conv (``dfl`` keys) has no
+    counterpart and is dropped. Tensors only (``weights_only``). Every other
+    key must match; only ``num_batches_tracked``, which the JAX tree does not
+    carry either, may be missing."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt.get("model", ckpt))
+    sd = {k: v for k, v in sd.items() if "dfl" not in k.split(".")}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    return model
