@@ -46,7 +46,24 @@ Phases (any failure raises and exits non-zero):
    marks (plain and per-class) equal ``batched_tp_marks`` run on the CPU
    on the same detections exactly. (c) the card's loss triplet equals the
    CPU's on two images, rtol 1e-4. (d) the step's img/s at B=32, its
-   phases (H2D, forward, loss, select+NMS, marks) and its device busy share.
+   phases (H2D, forward, loss, select+NMS, marks) and its device busy share;
+7. train: the crater YOLO11n (seeded init) at 640, f32 with TF32 off.
+   (a) one train step on the card against the same step on the CPU, same
+   weights, same B=2 batch (``compare_train_steps``): loss rtol 1e-4, each
+   gradient within 1e-3 of max|g_cpu| (cuDNN's wgrad sums in another
+   order), BN running variances rtol 1e-4 and means within 1e-5, the step
+   counter, and parameters within the Adam direction's difference times the
+   LR applied. (b) ``train.cli.main`` with ``--data synthetic --scale n
+   --imgsz 640 --batch 16 --epochs 2 --ema``, kernel #1's counter zeroed
+   just before and read just after: it must equal the val batches times
+   the epochs run; then ``--epochs 3`` resumes at epoch 2 (the step counter
+   2 x the train batches before, 3 x after); then ``val.main --ckpt --which
+   last --ema``; every loss finite; one val batch's detections through the
+   trained EMA weights equal the plain sweep's, at the trainer's conf 0.25
+   and at conf 0 (every box valid). (c) the train step's phases (H2D,
+   forward, loss, backward, clip+AdamW+EMA; medians of 5 between CUDA
+   events), train img/s over back-to-back steps at B=16, and the device
+   busy share (``torch.profiler``).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -55,10 +72,12 @@ and exits 1.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -74,6 +93,7 @@ from yolo_scratch_tpu_torch.infer import (
 )
 from yolo_scratch_tpu_torch.data.loader import Loader
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
 from yolo_scratch_tpu_torch.nn.fuse import bottleneck_weights
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck, detect_decode
@@ -87,9 +107,18 @@ from yolo_scratch_tpu_torch.ops.decode import (
     select_candidates,
 )
 from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS, batched_tp_marks
-from yolo_scratch_tpu_torch.train.steps import batch_to_device, make_eval_step, precision_scope
+from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
+from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
+from yolo_scratch_tpu_torch.train.state import create_train_state
+from yolo_scratch_tpu_torch.train.steps import (
+    batch_to_device,
+    build_train_step_custom,
+    make_eval_step,
+    precision_scope,
+    v8_loss_adapter,
+)
 from yolo_scratch_tpu_torch.utils.build import BUILD_DIR
-from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, time_ms
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, device_profile, time_ms
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): HBM bytes/s and
 # f32 (non-tensor-core) FLOP/s. The NMS sweep is f32 compare/divide work.
@@ -572,10 +601,249 @@ def eval_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# the train path (phase 7): the crater YOLO11n at 640, the JAX CLI's batch
+TRAIN_BATCH, TRAIN_EPOCHS = 16, 2
+TRAIN_KEYS = ("loss", "box_loss", "cls_loss", "dfl_loss")
+
+
+def _train_setup(model):
+    """A train state with EMA and the f32 train step (TF32 off) of ``model``,
+    with the schedule of a 10-epoch run of one step an epoch."""
+    state = create_train_state(model, make_optimizer(cosine_epoch_schedule(1e-3, 10, 1)),
+                               use_ema=True)
+    step = build_train_step_custom(
+        model, v8_loss_adapter(DetectionLossConfig(nc=model.nc, strides=model.strides)),
+        matmul_precision="highest")
+    return state, step
+
+
+def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3) -> dict:
+    """One train step of ``model`` on ``dev`` against the same step on the
+    CPU, from the same weights on the same batch, f32 with TF32 off. Raises
+    unless: the loss triplet agrees to rtol 1e-4; each gradient tensor lies
+    within ``grad_tol * max|g_cpu|`` (at least 1e-4 of the largest over all
+    tensors: a gradient that is 0 in exact arithmetic holds rounding noise
+    only); BN running variances rtol 1e-4, running means within 1e-5; the
+    step counters and optimizer counts are 1 on both; the parameters lie
+    within ``lr * |u_dev - u_cpu| + 1e-6``, ``u`` being the Adam direction
+    each side's moments give (the LR of the step and the update rule
+    applied alike). Returns the worst relative differences."""
+    runs = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(model).to(where)
+        state, step = _train_setup(m)
+        lr = state.tx.lr(state.opt_state.count)
+        state, metrics = step(state, batch)
+        names = [n for n, _ in m.named_parameters()]
+        runs[str(where)] = dict(
+            metrics={k: float(metrics[k]) for k in TRAIN_KEYS}, lr=lr,
+            grads={n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+            sd={k: v.detach().cpu() for k, v in m.state_dict().items()},
+            mu=dict(zip(names, (t.cpu() for t in state.opt_state.mu))),
+            nu=dict(zip(names, (t.cpu() for t in state.opt_state.nu))),
+            counts=(state.step, state.opt_state.count))
+    ref, got = runs["cpu"], runs[str(dev)]
+    out = {}
+    rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+           for k in TRAIN_KEYS}
+    out["loss"] = max(rel.values())
+    if out["loss"] > 1e-4:
+        raise AssertionError(f"train loss on {dev} differs from the CPU's: {rel}")
+    if got["counts"] != (1, 1) or ref["counts"] != (1, 1) or got["lr"] != ref["lr"]:
+        raise AssertionError(f"counts {got['counts']} / {ref['counts']}, lr {got['lr']} / "
+                             f"{ref['lr']}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in ref["grads"].values())
+    out["grad"] = 0.0
+    for n, g in ref["grads"].items():
+        err = float((got["grads"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
+        out["grad"] = max(out["grad"], err)
+        if err > grad_tol:
+            raise AssertionError(f"gradient {n} on {dev}: {err:.3g} of max|g_cpu| > {grad_tol}")
+    out["running_var"] = out["running_mean"] = 0.0
+    for k, r in ref["sd"].items():
+        if k.endswith("running_var"):
+            err = float(((got["sd"][k] - r).abs() / r.abs()).max())
+            lim = 1e-4
+        elif k.endswith("running_mean"):
+            err, lim = float((got["sd"][k] - r).abs().max()), 1e-5
+        else:
+            continue
+        key = k.rsplit(".", 1)[1]
+        out[key] = max(out[key], err)
+        if err > lim:
+            raise AssertionError(f"BN statistic {k} on {dev}: {err:.3g} > {lim}")
+    c, lr = ref["counts"][1], ref["lr"]
+
+    def direction(mu, nu):
+        return (mu / (1 - 0.9 ** c)) / ((nu / (1 - 0.999 ** c)).sqrt() + 1e-8)
+
+    out["param"] = 0.0
+    for n in ref["grads"]:
+        bound = lr * (direction(got["mu"][n], got["nu"][n])
+                      - direction(ref["mu"][n], ref["nu"][n])).abs() + 1e-6
+        err = (got["sd"][n] - ref["sd"][n]).abs()
+        out["param"] = max(out["param"], float(err.max()))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"parameter {n} on {dev} moved otherwise than on the CPU")
+    return out
+
+
+def train_phase_times(step, state, batch, reps: int = 5) -> dict:
+    """Median ms of each phase of the trainer's own step, timed between CUDA
+    events recorded at the phase ends that ``TrainStep.on_phase`` reports (a
+    phase includes the device's waits for the host)."""
+    samples = {}
+    for _ in range(reps + 1):  # the first pass warms up
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        step.on_phase = mark
+        try:
+            mark("start")
+            step(state, batch)
+        finally:
+            step.on_phase = None
+        torch.cuda.synchronize()
+        one = {}
+        for (_, a), (name, b) in zip(marks, marks[1:]):  # microbatches add up
+            one[name] = one.get(name, 0.0) + a.elapsed_time(b)
+        for name, ms in one.items():
+            samples.setdefault(name, []).append(ms)
+    return {n: statistics.median(v[1:]) for n, v in samples.items()}
+
+
+def trained_detections_check(save_dir: str, batch, dev) -> str:
+    """The EMA weights of ``save_dir``'s last checkpoint through the eval
+    step: kernel #1 launches once a call, and its detections equal the same
+    maps through the plain sweep, at conf 0.25 and at conf 0."""
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", device=dev)
+    state = create_train_state(model, make_optimizer(), use_ema=True)
+    CheckpointManager(save_dir).try_resume(state, name="last")
+    notes = []
+    for conf in (0.25, 0.0):
+        step = make_eval_step(model, conf_threshold=conf, use_ema=True)
+        b = batch_to_device(batch, dev)
+        feats = step.forward(b, state)
+        K.reset_launches()
+        _, dets = step.from_feats(feats, b)
+        torch.cuda.synchronize()
+        if K.launches["nms_sweep_batched"] != 1:
+            raise AssertionError(f"one eval step launched kernel #1 {K.launches} times")
+        with torch.inference_mode():
+            boxes, scores, labels, valid, _ = select_candidates(
+                feats, model.nc, model.strides, model.reg_max, conf, EVAL_TOPK)
+            keep = K._cap(K.nms_sweep_batched_plain(boxes, valid, IOU), 300)
+            ref = _finish(boxes, scores, labels, keep, 300, IMGSZ)
+        if not all(torch.equal(g, r) for g, r in zip(dets, ref)):
+            raise AssertionError(f"trained detections at conf {conf} differ from the plain "
+                                 "sweep's")
+        notes.append(f"conf {conf}: {int(valid.sum())} swept, {int(dets[3].sum())} kept")
+    return "; ".join(notes)
+
+
+def train_phase(dev, ident: str) -> dict:
+    """The train path: card vs CPU on one step, the CLI with resume and
+    validation through kernel #1, val.main on what it wrote, then times."""
+    from yolo_scratch_tpu_torch import val
+    from yolo_scratch_tpu_torch.train import cli as train_cli
+
+    B = TRAIN_BATCH
+    t_phase = time.perf_counter()
+    data = SyntheticDataset(n=64, img_size=IMGSZ)
+    batch = next(iter(Loader(data, B, max_gt=100, prefetch=0)))
+
+    # (a) one step, card vs CPU, B=2, TF32 off
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0)
+    errs = compare_train_steps(model, {k: v[:2] for k, v in batch.items()}, dev)
+    log("train step on 2 images, card vs CPU (TF32 off): " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + " (limits: loss rtol 1e-4, grad 1e-3 of "
+        "max|g_cpu|, running_var rtol 1e-4, running_mean 1e-5, param within lr x the Adam "
+        "directions' difference)")
+
+    # (b) the entry point a user calls, kernel #1's count zeroed just before
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as save_dir:
+        flags = ["--data", "synthetic", "--scale", "n", "--imgsz", str(IMGSZ), "--batch", str(B),
+                 "--ema", "--save-dir", save_dir]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        first = train_cli.main(flags + ["--epochs", str(TRAIN_EPOCHS)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = K.launches["nms_sweep_batched"]
+        n_val = int(len(data) * 0.2)
+        val_batches = -(-n_val // B)
+        train_batches = -(-(len(data) - n_val) // B)
+        log(f"train path (train.cli.main, {TRAIN_EPOCHS} epochs of {train_batches} batches "
+            f"of {B} at {IMGSZ}, --ema): launches {dict(K.launches)}, {fit_s:.1f} s")
+        if launches != val_batches * TRAIN_EPOCHS:
+            raise AssertionError(f"fit launched kernel #1 {launches} times; want {val_batches} "
+                                 f"val batches x {TRAIN_EPOCHS} epochs")
+        mgr = CheckpointManager(save_dir)
+        step_before = mgr.load_raw("last")["step"]
+        second = train_cli.main(flags + ["--epochs", str(TRAIN_EPOCHS + 1)])
+        launches = K.launches["nms_sweep_batched"]
+        if launches != val_batches * (TRAIN_EPOCHS + 1):
+            raise AssertionError(f"fit and its resume launched kernel #1 {launches} times; "
+                                 f"want {val_batches} x {TRAIN_EPOCHS + 1}")
+        step_after = mgr.load_raw("last")["step"]
+        resumed = [h["epoch"] for h in second["history"]]
+        if (step_before, step_after, resumed) != (TRAIN_EPOCHS * train_batches,
+                                                  (TRAIN_EPOCHS + 1) * train_batches,
+                                                  [TRAIN_EPOCHS]):
+            raise AssertionError(f"resume: steps {step_before} -> {step_after}, epochs run "
+                                 f"{resumed}")
+        history = first["history"] + second["history"]
+        losses = [h[part][k] for h in history for part in ("train", "val") for k in TRAIN_KEYS]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite losses {losses}")
+        for h in history:
+            log(f"  epoch {h['epoch']}: train loss {h['train']['loss']:.4f}, "
+                f"{h['train']['imgs_per_sec']:.1f} img/s over the epoch; val loss "
+                f"{h['val']['loss']:.4f}, mAP50 {h['val']['mAP50']:.4g}")
+        log(f"resume: step counter {step_before} -> {step_after}, epochs run {resumed}")
+        out = val.main(["--ckpt", save_dir, "--which", "last", "--ema", "--imgsz", str(IMGSZ),
+                        "--batch", str(B)])
+        if not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"val.main --ckpt printed non-finite values {out}")
+        log(f"val.main --ckpt --which last --ema: loss {out['loss']:.4f}, mAP50 "
+            f"{out['mAP50']:.4g}")
+        log("trained EMA detections equal the plain sweep's: "
+            + trained_detections_check(save_dir, batch, dev))
+    fit_launches = launches
+
+    # (c) times at B=16
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0,
+                         device=dev)
+    state, step = _train_setup(model)
+    phases = train_phase_times(step, state, batch)
+    step(state, batch)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    tr = device_profile(lambda: step(state, batch), reps=3)
+    log(f"train step at B={B}, {IMGSZ}x{IMGSZ} (f32, TF32 off, EMA): {B / wall * 1e3:.1f} "
+        f"img/s, {wall:.2f} ms/step wall, {tr['ms']:.2f} ms device (busy "
+        f"{tr['ms'] / wall:.3f}), {tr['ops']} device ops a step; phases ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()) + f" on {ident}")
+    log("train step, top device activities (ms a step, count): " + "; ".join(
+        f"{name} {ms:.2f} x{n}" for name, ms, n in tr["top"]))
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=fit_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda")
     ident = gpu_identity()
@@ -595,13 +863,17 @@ def main() -> int:
     bn = bottleneck_phase(dev, ident)
     timed["fused_bottleneck"] = bn["row"]
     ev = eval_phase(dev, ident)
+    tr = train_phase(dev, ident)
 
-    # kernel #1 runs on two paths: the Predictor's and the eval step's
-    launches = {"nms_sweep_batched": sl["main"]["nms_sweep_batched"] + ev["launches"],
+    # kernel #1 runs on three paths: the Predictor's, the eval step's and the
+    # trainer's validation
+    launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
+                                      + tr["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"], "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
                   launches=launches[name], **timed[name])
              for name, spec in KERNELS.items()]
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ Stated tolerances:
 """
 
 import threading
+from pathlib import Path
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -297,23 +298,26 @@ def test_eval_step_on_the_same_maps_matches_jax():
 
 def test_eval_step_options_not_ported_raise():
     model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=NC)
-    with pytest.raises(NotImplementedError, match="C3"):
-        tsteps.make_eval_step(model, use_ema=True)
     with pytest.raises(NotImplementedError, match="ROADMAP E"):
         tsteps.make_eval_step(model, loss_fn=lambda f, b: None)
-    with pytest.raises(NotImplementedError, match="C4"):
-        with tsteps.precision_scope("high"):
+    with pytest.raises(NotImplementedError, match="ROADMAP E"):
+        tsteps.make_eval_step(model, decode_fn=lambda f: None)
+    with pytest.raises(ValueError, match="matmul_precision"):
+        with tsteps.precision_scope("fastest"):
             pass
 
 
 def test_precision_scope_turns_tf32_off_and_restores():
+    """JAX "highest" and "high" (bf16x3 passes; torch's "high" would be
+    TF32) both turn TF32 off for cuBLAS and cuDNN."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     try:
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-        with tsteps.precision_scope("highest"):
-            assert not torch.backends.cuda.matmul.allow_tf32
-            assert not torch.backends.cudnn.allow_tf32
-        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        for name in ("highest", "high"):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            with tsteps.precision_scope(name):
+                assert not torch.backends.cuda.matmul.allow_tf32
+                assert not torch.backends.cudnn.allow_tf32
+            assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
@@ -368,7 +372,8 @@ def test_val_runs_on_cuda_by_default_and_never_falls_back(monkeypatch, ckpt):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tval.main(["--imgsz", "64", "--max-batches", "1"])
-    for flags, item in [(["--ckpt", "x"], "C5"), (["--ema"], "C3"), (["--model", "yolox"], "E"),
-                        (["--data", "/nonexistent"], "C7b")]:
+    for flags, item in [(["--model", "yolox"], "E"), (["--data", "/nonexistent"], "C7b")]:
         with pytest.raises(NotImplementedError, match=item):
             tval.main(flags + ["--device", "cpu", "--imgsz", "64"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):  # --ckpt: an empty dir
+        tval.main(["--ckpt", str(Path(ckpt).parent), "--device", "cpu", "--imgsz", "64"])

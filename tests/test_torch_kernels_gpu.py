@@ -253,3 +253,73 @@ def test_eval_step_runs_kernel_1_and_matches_plain_and_cpu_marks(cuda):
     assert torch.equal(out[2].cpu(), batched_tp_marks(pb, pv, gb, gm))
     assert torch.equal(out[3].cpu(), batched_tp_marks(pb, pv, gb, gm, pred_labels=pl,
                                                       gt_labels=gl))
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """One train step of the crater YOLO11n at 64 px, B=4, f32 with TF32 off,
+    on the card against the CPU from the same weights and batch, at
+    ``chip_smoke.py`` phase 7(a)'s tolerances (``compare_train_steps``: loss
+    rtol 1e-4, each gradient within 1e-3 of max|g_cpu|, BN running variances
+    rtol 1e-4 and means within 1e-5, the parameters within the LR times the
+    Adam directions' difference). B=4, not phase 7(a)'s 2: at 64 px the P5
+    blocks' BN sees 2x2 values an image, and at B=2 its 8 values a channel
+    put the two devices' gradients about 1e-3 of max|g| apart (8.3e-4 in one
+    run on an H100, above 1e-3 in another); at B=4 4.0e-4."""
+    from chip_smoke import compare_train_steps
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+    from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0)
+    batch = next(iter(Loader(SyntheticDataset(n=4, img_size=64), 4, max_gt=8, prefetch=0)))
+    errs = compare_train_steps(model, batch, cuda)
+    assert errs["loss"] <= 1e-4 and errs["grad"] <= 1e-3
+
+
+def test_bf16_train_step_on_the_card_computes_in_bf16(cuda):
+    """One ``compute_dtype=bf16`` step on the card (``--bf16``): every
+    convolution's output is bf16 and the loss receives f32 maps (forward
+    hooks, exact); the loss lies within rtol 0.15 of the f32 step's on the
+    same weights and batch (the JAX package's own bf16 bound,
+    ``tests/test_mixed_precision.py``); the weights, both moments, the EMA
+    and the BN statistics stay f32 and finite."""
+    import copy
+
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+    from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
+    from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+    from yolo_scratch_tpu_torch.train.optim import make_optimizer
+    from yolo_scratch_tpu_torch.train.state import create_train_state
+    from yolo_scratch_tpu_torch.train.steps import build_train_step_custom, v8_loss_adapter
+
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0,
+                         device=cuda)
+    batch = next(iter(Loader(SyntheticDataset(n=4, img_size=64), 4, max_gt=8, prefetch=0)))
+    losses = {}
+    for dtype in (None, torch.bfloat16):
+        m = copy.deepcopy(model)
+        state = create_train_state(m, make_optimizer(), use_ema=True)
+        conv_out, loss_in = set(), set()
+        hooks = [c.register_forward_hook(lambda _m, _i, out: conv_out.add(out.dtype))
+                 for c in m.modules() if isinstance(c, torch.nn.Conv2d)]
+        adapter = v8_loss_adapter(DetectionLossConfig(nc=5, strides=m.strides))
+
+        def loss_fn(feats, b, adapter=adapter, loss_in=loss_in):
+            loss_in.update(f.dtype for f in feats)
+            return adapter(feats, b)
+
+        step = build_train_step_custom(m, loss_fn, compute_dtype=dtype,
+                                       matmul_precision="highest")
+        state, metrics = step(state, batch)
+        for h in hooks:
+            h.remove()
+        want = torch.float32 if dtype is None else dtype
+        assert conv_out == {want} and loss_in == {torch.float32}
+        losses[dtype] = float(metrics["loss"])
+        tensors = [*m.state_dict().values(), *state.opt_state.mu, *state.opt_state.nu,
+                   *state.ema.values()]
+        for t in tensors:
+            if t.is_floating_point():
+                assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+    np.testing.assert_allclose(losses[torch.bfloat16], losses[None], rtol=0.15)

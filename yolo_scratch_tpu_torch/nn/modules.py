@@ -7,6 +7,10 @@ reference's state-dict keys (``model.23.cv2.0.2.bias``), so
 ``yolo_scratch_tpu.utils.torch_import.convert_reference_state_dict`` maps a
 port ``state_dict()`` onto the flax tree unchanged.
 
+BatchNorm trains as flax's does (:class:`BatchNorm2d`): its running variance
+follows the biased batch variance, where ``nn.BatchNorm2d`` follows the
+unbiased one.
+
 Not ported here: the int8 ``quant`` / ``calib`` hooks of ``ConvBNAct``.
 """
 
@@ -30,6 +34,36 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update.
+
+    In train mode the batch is normalised by its own mean and biased
+    variance, as both frameworks do. The running statistics then move as
+    flax moves them, ``r = keep * r + (1 - keep) * stat`` with ``keep = 1 -
+    momentum``, where ``stat`` is the batch mean and the *biased* batch
+    variance, reduced in f32 or wider (flax's ``_compute_stats``).
+    ``nn.BatchNorm2d`` feeds the unbiased variance into ``running_var``,
+    n/(n-1) times the JAX package's on every update.
+    ``num_batches_tracked`` stays unused. With ``update_stats`` False a
+    train-mode forward leaves the running statistics alone: the step's
+    recompute of a checkpointed forward sets it (``train/steps.py``), so
+    that remat updates them once, as ``jax.checkpoint`` does."""
+
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if self.update_stats:
+            with torch.no_grad():
+                xs = x.to(torch.promote_types(x.dtype, torch.float32))
+                var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+                self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBNAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm (eps 1e-3, momentum 0.03) + SiLU."""
 
@@ -37,7 +71,7 @@ class ConvBNAct(nn.Module):
                  g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x):

@@ -1,0 +1,182 @@
+"""Checkpoints: the last/best policy with resume (port of
+``train/checkpoints.py``).
+
+``last`` is saved every epoch and ``best`` on improvement, gated on mAP50
+when validation reports it, else on val loss. Each is ``<name>.pt``, a
+``torch.save`` of tensors, ints and dicts that ``torch.load(...,
+weights_only=True)`` reads:
+
+  model      the model's ``state_dict`` (parameters and BN buffers)
+  opt_state  ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``
+  ema        ``{name: tensor}`` of the EMA parameters, ``{}`` without EMA
+  step       the number of updates applied
+
+beside ``<name>.meta.json``: epoch, metrics, bests and any ``extra_meta``,
+with non-finite floats written as null (strict JSON).
+
+The JAX package's orbax directories are not read here: orbax's format needs
+tensorstore (ROADMAP C5).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+
+
+def _meta_dumps(meta: Dict[str, Any]) -> str:
+    """``json.dumps`` with non-finite floats as null. The stdlib emits
+    ``Infinity``/``NaN`` (``best_loss`` is inf on every mAP-gated run),
+    which strict JSON parsers reject. Readers treat null as "never set"
+    (``try_resume``, the Trainer's patience restore)."""
+
+    def clean(o):
+        if isinstance(o, dict):
+            return {k: clean(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return [clean(v) for v in o]
+        if isinstance(o, float) and not math.isfinite(o):
+            return None
+        return o
+
+    return json.dumps(clean(meta))
+
+
+def _mismatch(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor]) -> Optional[str]:
+    """The first key or shape difference between two tensor dicts, or None."""
+    for k, v in want.items():
+        if k not in got:
+            return f"checkpoint lacks {k}"
+        if tuple(got[k].shape) != tuple(v.shape):
+            return f"{k}: checkpoint {tuple(got[k].shape)} vs model {tuple(v.shape)}"
+    for k in got:
+        if k not in want:
+            return f"checkpoint has extra {k}"
+    return None
+
+
+def check_checkpoint(tree: Mapping[str, Any], model: torch.nn.Module, name: str,
+                     ema: bool) -> None:
+    """Raise unless the saved ``tree`` fits ``model``: its parameters and BN
+    buffers by name and shape, and an EMA when ``ema`` asks for one."""
+    buffers = dict(model.named_buffers())
+    saved = tree["model"]
+    for key, want, got in (
+            ("params", dict(model.named_parameters()),
+             {k: v for k, v in saved.items() if k not in buffers}),
+            ("batch_stats", buffers, {k: v for k, v in saved.items() if k in buffers})):
+        mismatch = _mismatch(got, want)
+        if mismatch:
+            raise ValueError(f"checkpoint '{name}': {key} do not match the model being "
+                             f"restored into ({mismatch}). Wrong --cfg/--scale/--nc/--ch "
+                             "for this checkpoint?")
+    if ema and not tree["ema"]:
+        raise ValueError(f"checkpoint '{name}' stores no EMA parameters (trained without "
+                         "EMA): drop --ema, or resume without requesting EMA weights.")
+
+
+def _write_atomic(path: Path, write) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    write(tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    """Saves ``last`` every epoch and ``best`` on improvement, under
+    ``save_dir``."""
+
+    def __init__(self, save_dir: str):
+        self.dir = Path(save_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    def _save(self, name: str, tree: Dict[str, Any], meta: Dict[str, Any]) -> None:
+        _write_atomic(self.dir / f"{name}.pt", lambda p: torch.save(tree, p))
+        _write_atomic(self.dir / f"{name}.meta.json", lambda p: p.write_text(_meta_dumps(meta)))
+
+    @staticmethod
+    def _tree(state) -> Dict[str, Any]:
+        names = [n for n, _ in state.model.named_parameters()]
+        return {
+            "model": state.model.state_dict(),
+            "opt_state": {"count": state.opt_state.count,
+                          "mu": dict(zip(names, state.opt_state.mu)),
+                          "nu": dict(zip(names, state.opt_state.nu))},
+            "ema": dict(state.ema) if state.ema is not None else {},
+            "step": state.step,
+        }
+
+    def save_epoch(self, state, epoch: int, train_metrics: Dict[str, float],
+                   val_metrics: Dict[str, float], best_loss: float, best_map50: float,
+                   extra_meta: Optional[Dict[str, Any]] = None) -> Tuple[float, float, bool]:
+        """Save ``last``; maybe save ``best``. Returns (best_loss,
+        best_map50, saved_best). ``extra_meta`` is merged into the meta
+        json (the Trainer's early-stopping counters)."""
+        tree = self._tree(state)
+        meta = {"epoch": epoch, "train_metrics": train_metrics, "val_metrics": val_metrics,
+                "best_loss": best_loss, "best_mAP50": best_map50}
+        if extra_meta:
+            meta.update(extra_meta)
+        self._save("last", tree, meta)
+
+        saved_best = False
+        if "mAP50" in val_metrics:
+            if val_metrics["mAP50"] > best_map50:
+                best_map50 = float(val_metrics["mAP50"])
+                meta["best_mAP50"] = best_map50
+                self._save("best", tree, meta)
+                saved_best = True
+        elif val_metrics.get("loss", float("inf")) < best_loss:
+            best_loss = float(val_metrics["loss"])
+            meta["best_loss"] = best_loss
+            self._save("best", tree, meta)
+            saved_best = True
+        return best_loss, best_map50, saved_best
+
+    def load_meta(self, name: str = "last") -> Optional[Dict[str, Any]]:
+        """The checkpoint's meta json, or None when absent."""
+        path = self.dir / f"{name}.meta.json"
+        return json.loads(path.read_text()) if path.exists() else None
+
+    def load_raw(self, name: str = "best") -> Optional[Dict[str, Any]]:
+        """The saved tree (on the CPU), or None when there is no such
+        checkpoint."""
+        path = self.dir / f"{name}.pt"
+        if not path.exists():
+            return None
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def try_resume(self, state, name: str = "last"):
+        """Restore ``state`` in place from checkpoint ``name`` and return
+        (state, start_epoch, best_loss, best_map50); without one, (state, 0,
+        inf, 0.0). A checkpoint of another architecture raises, and so does
+        one without EMA when ``state`` keeps one."""
+        meta = self.load_meta(name)
+        if meta is None:
+            return state, 0, float("inf"), 0.0
+        tree = self.load_raw(name)
+        if tree is None:
+            raise FileNotFoundError(f"{self.dir / name}.meta.json has no {name}.pt beside it")
+        model = state.model
+        check_checkpoint(tree, model, name, ema=state.ema is not None)
+        with torch.no_grad():
+            model.load_state_dict(tree["model"])
+            opt = tree["opt_state"]
+            names = [n for n, _ in model.named_parameters()]
+            for n, mu, nu in zip(names, state.opt_state.mu, state.opt_state.nu):
+                mu.copy_(opt["mu"][n])
+                nu.copy_(opt["nu"][n])
+            state.opt_state.count = int(opt["count"])
+            if state.ema is not None:
+                for n, e in state.ema.items():
+                    e.copy_(tree["ema"][n])
+        state.step = int(tree["step"])
+        # null = non-finite at write time (_meta_dumps): the "never set" sentinels
+        best_loss, best_map50 = meta.get("best_loss"), meta.get("best_mAP50")
+        return (state, int(meta["epoch"]) + 1,
+                float("inf") if best_loss is None else float(best_loss),
+                0.0 if best_map50 is None else float(best_map50))

@@ -1,11 +1,103 @@
-"""Dataset selection shared by the port's CLIs (port of
-``train/cli.py::make_datasets``; the training CLI itself is ROADMAP C6)."""
+"""Training CLI (port of ``train/cli.py``): the JAX CLI's flags, with the same
+names and defaults, except ``--device``, which selects the device and
+defaults to ``cuda``; there is no fallback to the CPU.
+
+Run: ``python -m yolo_scratch_tpu_torch.train.cli --data synthetic --scale n
+--epochs 2 --ema --save-dir runs/t`` (on the card), or add ``--device cpu``.
+
+Not ported, each raising with its ROADMAP item: ``--model yolox`` (E),
+``--mesh`` and ``--multihost`` (F), ``--augment``/``--mosaic``/``--mixup``
+and the crater and COCO datasets (C7b).
+"""
 
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 
+import numpy as np
+
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+from yolo_scratch_tpu_torch.models.builder import CONFIGS
+
+
+def resolve_train_precision(arg):
+    """CLI ``--train-precision`` -> ``TrainerConfig.train_matmul_precision``.
+    Flag absent (None) -> the TrainerConfig default (``"high"``, which the
+    step maps to TF32 off); ``default`` -> None (the backend's own flags)."""
+    from yolo_scratch_tpu_torch.train.trainer import TrainerConfig
+
+    if arg is None:
+        return TrainerConfig.train_matmul_precision
+    return None if arg == "default" else arg
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train YOLO (PyTorch/CUDA)")
+    p.add_argument("--data", type=str, default="synthetic",
+                   help="crater data dir, COCO dir, or 'synthetic'")
+    p.add_argument("--dataset", type=str, default="auto",
+                   choices=["auto", "crater", "coco", "synthetic"])
+    p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
+    p.add_argument("--model", type=str, default="yolo11", choices=["yolo11", "yolox"],
+                   help="model family (yolox: not ported, ROADMAP E)")
+    p.add_argument("--scale", type=str, default="s",
+                   choices=["n", "s", "m", "l", "x", "nano", "tiny"])
+    p.add_argument("--epochs", type=int, default=150)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--imgsz", type=int, default=640)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; no fallback when it is missing")
+    p.add_argument("--workers", type=int, default=4,
+                   help="loader prefetch depth AND per-batch decode threads")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=5e-4)
+    p.add_argument("--val-split", type=float, default=0.2)
+    p.add_argument("--save-dir", type=str, default="runs/train")
+    p.add_argument("--pretrained", type=str, default=None,
+                   help="warm-start weights: a checkpoint dir of this package or a "
+                        "reference .pt (partial load, strict=False)")
+    p.add_argument("--resume", action="store_true", default=True)
+    p.add_argument("--no-resume", dest="resume", action="store_false")
+    p.add_argument("--max-val-batches", type=int, default=None)
+    p.add_argument("--val-conf", type=float, default=0.25)
+    p.add_argument("--max-gt", type=int, default=100, help="static per-image GT capacity")
+    p.add_argument("--ema", action="store_true", help="track EMA weights")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel size (0 = one device; >1 not ported, ROADMAP F)")
+    p.add_argument("--multiscale", action="store_true",
+                   help="multi-scale training over bucketed sizes {0.75, 0.875, 1, 1.125}*imgsz")
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed-precision training (bf16 autocast, f32 master weights)")
+    p.add_argument("--train-precision", type=str, default=None,
+                   choices=["default", "high", "highest"],
+                   help="train-step precision: unset or 'high' or 'highest' = TF32 off "
+                        "for matmuls and convolutions; 'default' = the backend's flags")
+    p.add_argument("--remat", action="store_true",
+                   help="gradient checkpointing (activation recompute)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="accumulate gradients over k microbatches per step "
+                        "(--batch must be divisible by k)")
+    p.add_argument("--bn-mode", type=str, default="sync", choices=["sync", "local"],
+                   help="BatchNorm under --mesh (ROADMAP F)")
+    p.add_argument("--augment", action="store_true",
+                   help="device-side augmentation (not ported, ROADMAP C7b)")
+    p.add_argument("--mosaic", type=float, default=0.0,
+                   help="mosaic probability (not ported, ROADMAP C7b)")
+    p.add_argument("--mixup", type=float, default=0.0,
+                   help="mixup probability (not ported, ROADMAP C7b)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training (not ported, ROADMAP F)")
+    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--nproc", type=int, default=None)
+    p.add_argument("--pid", type=int, default=None)
+    p.add_argument("--final-epochs", type=int, default=0,
+                   help="last-N-epochs no-aug phase")
+    p.add_argument("--patience", type=int, default=0,
+                   help="early stop after N epochs of val fitness (mAP50, -val-loss "
+                        "fallback) below its running best; 0 = off")
+    p.add_argument("--seed", type=int, default=42)
+    return p
 
 
 def make_datasets(args):
@@ -26,3 +118,91 @@ def make_datasets(args):
         return SyntheticDataset(n=64, img_size=args.imgsz, channels=1, num_classes=5), 1, 5
     raise NotImplementedError(f"dataset {kind!r} ({args.data}): only 'synthetic' is ported; "
                               "the crater and COCO datasets wait for ROADMAP C7b")
+
+
+def _check_ported(args) -> None:
+    if args.model == "yolox":
+        raise NotImplementedError("--model yolox: the YOLOX family is not ported (ROADMAP E)")
+    if args.multihost or args.mesh > 1:
+        raise NotImplementedError("--mesh / --multihost: multi-GPU training is not ported "
+                                  "(ROADMAP F)")
+    if args.augment or args.mosaic > 0 or args.mixup > 0:
+        raise NotImplementedError("--augment / --mosaic / --mixup: device augmentation is not "
+                                  "ported (ROADMAP C7b)")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    if args.grad_accum < 1 or args.batch % args.grad_accum:
+        raise SystemExit(f"--batch {args.batch} must be a positive multiple of "
+                         f"--grad-accum {args.grad_accum}")
+    _check_ported(args)
+
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.models.builder import build_yolo11
+    from yolo_scratch_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from yolo_scratch_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    ds, ch, nc = make_datasets(args)
+    n = len(ds)
+    # seeded split (the reference's torch.randperm(seed=42), with a numpy PRNG)
+    idx = np.random.RandomState(args.seed).permutation(n)
+    n_val = int(n * args.val_split)
+    train_idx, val_idx = idx[: n - n_val], idx[n - n_val:]
+    print(f"Train samples: {len(train_idx)}, Val samples: {len(val_idx)}")
+
+    ms_sizes = None
+    if args.multiscale:
+        # bucketed static shapes; each bucket divisible by 32 (P5 stride)
+        ms_sizes = sorted({max(32, int(args.imgsz * f) // 32 * 32)
+                           for f in (0.75, 0.875, 1.0, 1.125)})
+        print(f"multi-scale buckets: {ms_sizes}")
+    train_loader = Loader(ds, args.batch, max_gt=args.max_gt, shuffle=True, seed=args.seed,
+                          indices=train_idx, prefetch=args.workers, workers=args.workers,
+                          multiscale_sizes=ms_sizes)
+    val_loader = (Loader(ds, args.batch, max_gt=args.max_gt, indices=val_idx,
+                         prefetch=args.workers, workers=args.workers)
+                  if len(val_idx) else None)
+
+    model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale, seed=args.seed, device=dev)
+    print(f"Building {Path(args.cfg).name} scale={args.scale} nc={nc} ch={ch} "
+          f"strides={model.strides} on {dev}")
+
+    cfg = TrainerConfig(
+        epochs=args.epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        val_conf=args.val_conf,
+        max_val_batches=args.max_val_batches,
+        save_dir=args.save_dir,
+        use_ema=args.ema,
+        eval_with_ema=args.ema,
+        mixed_precision=args.bf16,
+        remat=args.remat,
+        grad_accum=args.grad_accum,
+        train_matmul_precision=resolve_train_precision(args.train_precision),
+        bn_mode=args.bn_mode,
+        pretrained=args.pretrained,
+        final_epochs=args.final_epochs,
+        patience=args.patience,
+    )
+    try:
+        trainer = Trainer(model, train_loader, val_loader, cfg, model_kind=args.model)
+        total = sum(p.numel() for p in model.parameters())
+        print(f"Total parameters: {total:,} ({total / 1e6:.2f}M)")
+        return trainer.fit(resume=args.resume)
+    finally:
+        train_loader.close()
+        if val_loader is not None:
+            val_loader.close()
+
+
+def cli(argv=None):
+    """Console-script entry: run main() and discard its return value."""
+    main(argv)
+
+
+if __name__ == "__main__":
+    cli()

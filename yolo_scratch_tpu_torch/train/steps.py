@@ -1,5 +1,4 @@
-"""The evaluation step (port of ``train/steps.py``: ``v8_loss_adapter`` and
-``make_eval_step``; the train step is not ported yet, ROADMAP C4).
+"""The train and eval steps (port of ``train/steps.py``).
 
 Batches are the loader's dicts of fixed-shape numpy arrays:
   img        (B, H, W, C) float32 in [0, 1], NHWC
@@ -8,24 +7,34 @@ Batches are the loader's dicts of fixed-shape numpy arrays:
   gt_mask    (B, G) bool
   sample_valid (B,) bool, optional
 
-One step: the batch to the model's device, the forward in eval mode, the v8
-loss (TAL assignment included), fused select-then-decode with the top
-``pre_nms_topk`` candidates through NMS kernel #1
-(``ops/nms_kernels.py::nms_sweep_batched``; its plain version on a CPU
-model), and optionally greedy TP marks against the batch GT on the device
-(``ops/matching.py``). Every result stays on the device; the caller fetches.
+A train step: the batch to the model's device, the forward in train mode (BN
+on batch statistics, its running statistics updated as flax updates them),
+the maps cast to f32, the v8 loss (TAL assignment included), backward, clip,
+AdamW and the EMA (``train/state.py``). Its metrics are 0-d device tensors:
+no host sync.
+
+An eval step: the batch to the model's device, the forward in eval mode, the
+v8 loss, fused select-then-decode with the top ``pre_nms_topk`` candidates
+through NMS kernel #1 (``ops/nms_kernels.py::nms_sweep_batched``; its plain
+version on a CPU model), and optionally greedy TP marks against the batch GT
+on the device (``ops/matching.py``). Every result stays on the device; the
+caller fetches.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, Mapping
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig, v8_detection_loss
+from yolo_scratch_tpu_torch.nn.modules import BatchNorm2d
 from yolo_scratch_tpu_torch.ops.decode import postprocess_from_feats
 from yolo_scratch_tpu_torch.ops.matching import batched_tp_marks
+from yolo_scratch_tpu_torch.train.state import ema_state_dict
 
 
 def v8_loss_adapter(loss_cfg: DetectionLossConfig):
@@ -42,18 +51,20 @@ def v8_loss_adapter(loss_cfg: DetectionLossConfig):
 @contextlib.contextmanager
 def precision_scope(name: str | None) -> Iterator[None]:
     """The JAX package's ``jax.default_matmul_precision`` for one step.
-    ``"highest"`` turns TF32 off for both cuBLAS matmuls and cuDNN
-    convolutions (cuDNN's is on by default) and restores both flags
-    afterwards; ``None`` leaves them as they are. JAX ``"high"`` (bf16x3
-    passes) has no torch counterpart: torch's ``"high"`` is TF32, other
-    numerics (ROADMAP C4), so any other name raises."""
+    ``"highest"`` and ``"high"`` both turn TF32 off for cuBLAS matmuls and
+    cuDNN convolutions (cuDNN's is on by default) and restore both flags
+    afterwards; ``None`` leaves them as they are.
+
+    JAX ``"high"``, the training default, means bf16x3 MXU passes, about
+    16 mantissa bits. torch's ``"high"`` means TF32 on Hopper, 10 mantissa
+    bits: other numerics, with no measured accuracy behind them. So it maps
+    to full f32 until a TF32 arm has been measured (ROADMAP C4). Any other
+    name raises."""
     if name is None:
         yield
         return
-    if name != "highest":
-        raise NotImplementedError(
-            f"matmul_precision={name!r}: only 'highest' (TF32 off) and None are ported; "
-            "JAX 'high' is not torch 'high' (ROADMAP C4)")
+    if name not in ("high", "highest"):
+        raise ValueError(f"matmul_precision={name!r}: want 'high', 'highest' or None")
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -68,9 +79,134 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str,
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+@contextlib.contextmanager
+def frozen_bn_stats(model: torch.nn.Module) -> Iterator[None]:
+    """Train-mode forwards inside leave every BN's running statistics alone
+    (the recompute of a checkpointed forward)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+class TrainStep:
+    """``step(state, batch) -> (state, metrics)``, built by
+    :func:`build_train_step_custom`. The state is updated in place and
+    returned; ``metrics`` holds ``loss`` and the loss function's items as
+    0-d device tensors (no host sync).
+
+    ``on_phase``, when set, is called with each phase's name as the phase
+    ends: ``"h2d"``, then ``"forward"``, ``"loss"`` and ``"backward"`` for
+    each microbatch, then ``"clip_adamw_ema"``. A profiler records a CUDA
+    event there to time the step's own phases."""
+
+    on_phase: Optional[Callable[[str], None]] = None
+
+    def __init__(self, model, loss_fn, compute_dtype=None, remat=False, grad_accum=1,
+                 matmul_precision=None):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.grad_accum = grad_accum
+        self.precision = matmul_precision
+
+    def forward(self, img: torch.Tensor):
+        """Train-mode forward of an NHWC device batch -> raw maps in the
+        model's dtype. bf16 runs under autocast (f32 master weights; BN
+        statistics stay f32) and its maps are cast back to f32; remat
+        recomputes the forward in backward, with the BN statistics updated
+        once, in the first pass."""
+        self.model.train()
+        autocast = (torch.autocast(img.device.type, dtype=self.compute_dtype)
+                    if self.compute_dtype is not None else contextlib.nullcontext())
+        with autocast:
+            if self.remat:
+                feats = checkpoint(self.model, img, use_reentrant=False,
+                                   context_fn=lambda: (contextlib.nullcontext(),
+                                                       frozen_bn_stats(self.model)))
+            else:
+                feats = self.model(img)
+        if self.compute_dtype is not None:
+            feats = [f.float() for f in feats]
+        return feats
+
+    def _mark(self, phase: str) -> None:
+        if self.on_phase is not None:
+            self.on_phase(phase)
+
+    def _micro(self, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Forward, loss and backward of one (micro)batch; the gradients
+        add into ``.grad``."""
+        feats = self.forward(batch["img"])
+        self._mark("forward")
+        total, metrics = self.loss_fn(feats, batch)
+        self._mark("loss")
+        total.backward()
+        self._mark("backward")
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def grads(self, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """The mean gradient of a device batch in ``.grad``, and its loss and
+        metrics. ``grad_accum = k > 1`` splits the batch STRIDED, as the JAX
+        step does (microbatch i is rows i, i+k, i+2k, ...): each
+        microbatch's loss normalises over its own targets, BN statistics
+        update once per microbatch in order, and gradients and metrics are
+        summed, then scaled by 1/k."""
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        k = self.grad_accum
+        if k == 1:
+            return self._micro(batch)
+        loss, metrics = None, None
+        for i in range(k):
+            l_i, m_i = self._micro({key: v[i::k] for key, v in batch.items()})
+            if loss is None:
+                loss, metrics = l_i, m_i
+            else:
+                loss = loss + l_i
+                metrics = {key: metrics[key] + m_i[key] for key in metrics}
+        with torch.no_grad():
+            torch._foreach_mul_([p.grad for p in params], 1.0 / k)
+        return loss * (1.0 / k), {key: v * (1.0 / k) for key, v in metrics.items()}
+
+    def __call__(self, state, batch: Mapping[str, Any]):
+        device = next(self.model.parameters()).device
+        b = batch_to_device(batch, device)
+        self._mark("h2d")
+        with precision_scope(self.precision):
+            loss, metrics = self.grads(b)
+            state.apply_gradients([p.grad for p in self.model.parameters()])
+        self._mark("clip_adamw_ema")
+        return state, {"loss": loss, **metrics}
+
+
+def build_train_step_custom(model, loss_fn, compute_dtype=None, remat: bool = False,
+                            grad_accum: int = 1, matmul_precision=None) -> TrainStep:
+    """The train step of ``model`` with ``loss_fn(feats, batch) -> (total,
+    metrics)``.
+
+    ``compute_dtype=torch.bfloat16``: the forward and backward under bf16
+    autocast; the f32 master weights, optimizer state, BN statistics and the
+    loss stay f32 (the maps are cast back before the loss).
+    ``remat=True``: ``torch.utils.checkpoint`` (non-reentrant) of the whole
+    forward, activations recomputed in backward. ``grad_accum=k``: see
+    :meth:`TrainStep.grads`. ``matmul_precision``: :func:`precision_scope`
+    for the whole step."""
+    return TrainStep(model, loss_fn, compute_dtype, remat, grad_accum, matmul_precision)
+
+
 class EvalStep:
-    """``step(batch) -> (metrics, (boxes, scores, labels, valid)[, marks[,
-    marks_cls]])``, built by :func:`make_eval_step`.
+    """``step(batch, state=None) -> (metrics, (boxes, scores, labels,
+    valid)[, marks[, marks_cls]])``, built by :func:`make_eval_step`. With
+    ``use_ema`` and a ``state`` that holds an EMA, the forward runs on the
+    EMA parameters and the live BN buffers (``train/state.py::ema_state_dict``);
+    otherwise on the model as it stands.
 
     ``metrics`` holds 0-d tensors: loss, box_loss, cls_loss, dfl_loss and
     prefilter_saturated (the share of real images, ``sample_valid``, whose
@@ -79,8 +215,9 @@ class EvalStep:
     validity mask. Marks are (B, T, max_det) bool."""
 
     def __init__(self, model, loss_fn, conf_threshold, iou_threshold, max_det, pre_nms_topk,
-                 match_thresholds, per_class, matmul_precision):
+                 match_thresholds, per_class, matmul_precision, use_ema=False):
         self.model = model
+        self.use_ema = use_ema
         self.loss_fn = loss_fn
         self.conf_threshold = conf_threshold
         self.iou_threshold = iou_threshold
@@ -94,13 +231,16 @@ class EvalStep:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def forward(self, batch: Mapping[str, torch.Tensor]):
+    def forward(self, batch: Mapping[str, torch.Tensor], state=None):
         """Raw NHWC Detect maps of a device batch, BN on its running
         statistics (the module is put in eval mode for the call)."""
+        ema = ema_state_dict(state) if self.use_ema and state is not None else None
         was_training = self.model.training
         self.model.eval()
         try:
             with precision_scope(self.precision), torch.inference_mode():
+                if ema is not None:
+                    return functional_call(self.model, ema, (batch["img"],))
                 return self.model(batch["img"])
         finally:
             self.model.train(was_training)
@@ -142,9 +282,9 @@ class EvalStep:
                                      gt_labels=batch["gt_labels"])
         return metrics, dets, marks, marks_cls
 
-    def __call__(self, batch: Mapping[str, Any]):
+    def __call__(self, batch: Mapping[str, Any], state=None):
         b = batch_to_device(batch, self.device)
-        return self.from_feats(self.forward(b), b)
+        return self.from_feats(self.forward(b, state), b)
 
 
 def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
@@ -159,12 +299,11 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
     trained weights. ``match_thresholds`` (an IoU tuple) adds greedy TP
     marks; ``per_class`` adds class-restricted marks. ``matmul_precision``
     defaults to ``"highest"``: TF32 off, because validation measures
-    accuracy (see :func:`precision_scope`).
+    accuracy (see :func:`precision_scope`). ``use_ema``: evaluate the EMA
+    of the state passed to each call.
 
-    ``use_ema`` waits for the EMA state (ROADMAP C3); ``loss_fn`` and
-    ``decode_fn`` serve YOLOX (ROADMAP E). Passing them raises."""
-    if use_ema:
-        raise NotImplementedError("use_ema: the EMA train state is not ported yet (ROADMAP C3)")
+    ``loss_fn`` and ``decode_fn`` serve YOLOX (ROADMAP E). Passing them
+    raises."""
     if loss_fn is not None or decode_fn is not None:
         raise NotImplementedError("loss_fn / decode_fn: the YOLOX family is not ported yet "
                                   "(ROADMAP E)")
@@ -172,4 +311,4 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
         loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides,
                                        reg_max=model.reg_max)
     return EvalStep(model, v8_loss_adapter(loss_cfg), conf_threshold, iou_threshold, max_det,
-                    pre_nms_topk, match_thresholds, per_class, matmul_precision)
+                    pre_nms_topk, match_thresholds, per_class, matmul_precision, use_ema)

@@ -1,0 +1,362 @@
+"""Trainer: the epoch loop, validation and checkpoints (port of
+``train/trainer.py``).
+
+The train step keeps its metrics on the device; an epoch's are stacked and
+fetched once at its end. Validation runs the eval step with device TP marks
+and NMS kernel #1 (``train/steps.py::EvalStep``), deferring its fetches in
+chunks of ``val_fetch_chunk`` batches; only the AP accumulation runs on the
+host.
+
+Not ported here, each raising with its ROADMAP item: a ``mesh`` and
+``bn_mode="local"`` (F), ``model_kind="yolox"`` (E), ``augment`` (C7b).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
+from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
+from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
+from yolo_scratch_tpu_torch.train.state import create_train_state
+from yolo_scratch_tpu_torch.train.steps import (
+    build_train_step_custom,
+    make_eval_step,
+    v8_loss_adapter,
+)
+from yolo_scratch_tpu_torch.utils.metrics import (
+    detections_to_lists,
+    evaluate_detections,
+    metrics_from_marks,
+    targets_to_lists,
+)
+
+
+@dataclass
+class TrainerConfig:
+    epochs: int = 150
+    lr: float = 1e-3
+    weight_decay: float = 5e-4
+    warmup_epochs: int = 3
+    clip_norm: float = 10.0
+    val_conf: float = 0.25
+    nms_iou: float = 0.45
+    max_det: int = 300
+    # prefilter cap of the fixed-shape NMS (the reference's eval NMS is
+    # uncapped); the per-epoch `prefilter_saturated` val metric reports
+    # when it binds
+    pre_nms_topk: int = 2048
+    # precision of the EVAL step (train/steps.py::precision_scope):
+    # validation measures accuracy, so TF32 off
+    val_matmul_precision: Optional[str] = "highest"
+    max_val_batches: Optional[int] = None
+    # validate() defers device->host fetches and stacks them, flushing every
+    # K batches: the live footprint is K x B x max_det rows, not the val set
+    val_fetch_chunk: int = 128
+    save_dir: Optional[str] = None
+    use_ema: bool = False
+    eval_with_ema: bool = False
+    log_interval: int = 50
+    augment: Optional[Any] = None  # ROADMAP C7b: raises when set
+    mixed_precision: bool = False  # bf16 autocast fwd/bwd, f32 master weights + loss
+    remat: bool = False  # activation recompute (torch.utils.checkpoint) in backward
+    # k>1: k microbatches, mean gradient applied once (steps.TrainStep.grads)
+    grad_accum: int = 1
+    # TRAIN-step precision: the JAX default "high" (bf16x3 passes) maps to
+    # TF32 off here, as "highest" does (train/steps.py::precision_scope);
+    # None leaves the backend flags alone
+    train_matmul_precision: Optional[str] = "high"
+    bn_mode: str = "sync"  # 'local' (DDP per-replica BN): ROADMAP F
+    # final no-aug phase: the last N epochs train with augmentation off
+    final_epochs: int = 0
+    # TP/FP matching on the device inside the eval step (ops/matching.py);
+    # False takes the numpy greedy matcher (utils/metrics.py)
+    device_matching: bool = True
+    # warm-start weights: a checkpoint dir of this package (best, else
+    # last) or a reference .pt file; missing keys and shape mismatches
+    # keep their init (the reference's strict=False load)
+    pretrained: Optional[str] = None
+    # early stopping after N epochs of val fitness (mAP50, else -val loss)
+    # below its running best; the gate is >=, so an exact plateau refreshes
+    # the clock. 0 disables. The counters persist in the checkpoint meta.
+    patience: int = 0
+
+
+class Trainer:
+    def __init__(self, model, train_loader, val_loader=None,
+                 config: TrainerConfig = TrainerConfig(), mesh=None,
+                 model_kind: str = "yolo11"):
+        """Trains ``model`` in place, on the model's device. The model comes
+        initialised (the CLI seeds it) and the loaders carry their own
+        seeds, so there is no ``seed`` argument."""
+        if mesh is not None or config.bn_mode == "local":
+            raise NotImplementedError("mesh / bn_mode='local': multi-GPU training is not "
+                                      "ported (ROADMAP F)")
+        if model_kind != "yolo11":
+            raise NotImplementedError(f"model_kind={model_kind!r}: the YOLOX family is not "
+                                      "ported (ROADMAP E)")
+        if config.augment is not None:
+            raise NotImplementedError("augment: device augmentation is not ported "
+                                      "(ROADMAP C7b)")
+        self.model = model
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.cfg = config
+        self.loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides)
+
+        steps_per_epoch = max(len(train_loader), 1)
+        self.schedule = cosine_epoch_schedule(config.lr, config.epochs, steps_per_epoch,
+                                              config.warmup_epochs)
+        tx = make_optimizer(self.schedule, config.weight_decay, config.clip_norm)
+        # the JAX Trainer draws one batch for its init shape, which moves the
+        # loader's epoch counter; drawn here too, so the shuffles line up
+        draw = iter(train_loader)
+        next(draw)
+        draw.close()
+        if config.pretrained:
+            self._apply_pretrained(config.pretrained)
+        self.state = create_train_state(model, tx, use_ema=config.use_ema)
+        self._train_step = build_train_step_custom(
+            model, v8_loss_adapter(self.loss_cfg),
+            compute_dtype=torch.bfloat16 if config.mixed_precision else None,
+            remat=config.remat, grad_accum=config.grad_accum,
+            matmul_precision=config.train_matmul_precision)
+        if config.device_matching:
+            from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS
+
+            self._match_thresholds = DEFAULT_THRESHOLDS
+        else:
+            self._match_thresholds = None
+        self._eval_step = make_eval_step(
+            model, self.loss_cfg, conf_threshold=config.val_conf,
+            iou_threshold=config.nms_iou, max_det=config.max_det,
+            pre_nms_topk=config.pre_nms_topk, use_ema=config.eval_with_ema,
+            match_thresholds=self._match_thresholds,
+            matmul_precision=config.val_matmul_precision)
+
+        self.ckpt = CheckpointManager(config.save_dir) if config.save_dir else None
+        self.logger = None
+        if config.save_dir:
+            from yolo_scratch_tpu_torch.utils.logging import JsonlWriter, MetricsLogger
+
+            self.logger = MetricsLogger(
+                [JsonlWriter(str(Path(config.save_dir) / "metrics.jsonl"))])
+        self.best_loss = float("inf")
+        self.best_map50 = 0.0
+        self.start_epoch = 0
+        # early-stopping state; persisted in the meta json, restored by resume()
+        self.since_improve = 0
+        self.patience_best = -float("inf")
+
+    def _apply_pretrained(self, path: str) -> None:
+        """Overlay pretrained weights onto the model (the reference's
+        strict=False partial load): a checkpoint dir of this package (best,
+        else last) or a reference ``.pt`` file."""
+        from yolo_scratch_tpu_torch.utils.weights import merge_pretrained, reference_state_dict
+
+        p = Path(path)
+        if p.is_dir():
+            mgr = CheckpointManager(str(p))
+            raw = mgr.load_raw("best") or mgr.load_raw("last")
+            if raw is None:
+                raise FileNotFoundError(f"no checkpoint under {p}")
+            loaded = raw["model"]
+        else:
+            loaded = reference_state_dict(p)
+        init = self.model.state_dict()
+        merged, skipped = merge_pretrained(init, loaded)
+        self.model.load_state_dict(merged)
+        names = {n for n, _ in self.model.named_parameters()}
+        skipped_p = [k for k in skipped if k in names]
+        total = len(names)
+        print(f"pretrained: loaded {path} ({total - len(skipped_p)}/{total} parameters; "
+              f"{len(skipped)} kept init: {', '.join(skipped[:4])}"
+              f"{'...' if len(skipped) > 4 else ''})"
+              if skipped else f"pretrained: loaded {path} (all {total} parameters)")
+
+    # ------------------------------------------------------------------
+
+    def resume(self) -> bool:
+        if self.ckpt is None:
+            return False
+        self.state, self.start_epoch, self.best_loss, self.best_map50 = self.ckpt.try_resume(
+            self.state)
+        if self.start_epoch > 0:
+            pat = (self.ckpt.load_meta("last") or {}).get("patience")
+            if pat is not None:
+                self.since_improve = int(pat["since_improve"])
+                # null = no val fitness before the save: the fresh-run sentinel
+                self.patience_best = (-float("inf") if pat["best"] is None
+                                      else float(pat["best"]))
+        return self.start_epoch > 0
+
+    def _in_final_phase(self, epoch: int) -> bool:
+        """The last ``final_epochs`` epochs (augmentation off)."""
+        return self.cfg.final_epochs > 0 and epoch >= self.cfg.epochs - self.cfg.final_epochs
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        t0 = time.perf_counter()
+        images = 0
+        collected = []  # device tensors; fetched once at epoch end (no per-step sync)
+        for batch in self.train_loader:
+            images += batch["img"].shape[0]
+            self.state, metrics = self._train_step(self.state, batch)
+            collected.append(metrics)
+        out: Dict[str, float] = {}
+        if collected:
+            keys = sorted(collected[0])  # the JAX package's order: jit returns dicts sorted
+            stacked = torch.stack([torch.stack([m[k] for m in collected]) for k in keys])
+            vals = stacked.cpu().numpy().mean(axis=1)
+            out = {k: float(v) for k, v in zip(keys, vals)}
+        dt = time.perf_counter() - t0
+        out["imgs_per_sec"] = images / dt if dt > 0 else 0.0
+        out["epoch_time_s"] = dt
+        return out
+
+    def validate(self) -> Dict[str, float]:
+        if self.val_loader is None:
+            return {}
+        n = 0
+        all_preds, all_targets = [], []                # host-matching path
+        all_marks, all_scores, all_valid = [], [], []  # device-matching path
+        n_gt = 0
+        metric_accum = []  # device scalar dicts, fetched stacked at the end
+        deferred = []      # (device tensors..., sv[, targets]) per batch
+
+        def flush_deferred():
+            """Stacked fetch of the deferred batches, one transfer per kind."""
+            if not deferred:
+                return
+            if self._match_thresholds is not None:
+                marks_h, scores_h, valid_h = (
+                    torch.stack([d[i] for d in deferred]).cpu().numpy() for i in range(3))
+                for i, d in enumerate(deferred):
+                    sv = d[3]
+                    all_marks.append(marks_h[i][sv])
+                    all_scores.append(scores_h[i][sv])
+                    all_valid.append(valid_h[i][sv])
+            else:
+                boxes_h, scores_h, labels_h, valid_h = (
+                    torch.stack([d[i] for d in deferred]).cpu().numpy() for i in range(4))
+                for i, d in enumerate(deferred):
+                    sv, targets = d[4], d[5]
+                    preds = detections_to_lists(boxes_h[i], scores_h[i], labels_h[i], valid_h[i])
+                    all_preds.extend(p for p, ok in zip(preds, sv) if ok)
+                    all_targets.extend(t for t, ok in zip(targets, sv) if ok)
+            deferred.clear()
+
+        for batch in self.val_loader:
+            if self.cfg.max_val_batches is not None and n >= self.cfg.max_val_batches:
+                break
+            out_step = self._eval_step(batch, self.state)
+            metrics, (boxes, scores, labels, valid) = out_step[0], out_step[1]
+            metric_accum.append(metrics)
+            # score each val image once: drop the loader's wrap-padding duplicates
+            B = batch["img"].shape[0]
+            sv = np.asarray(batch.get("sample_valid", np.ones(B, bool)))
+            if self._match_thresholds is not None:
+                deferred.append((out_step[2], scores, valid, sv))
+                n_gt += int(np.asarray(batch["gt_mask"])[sv].sum())
+            else:
+                targets = targets_to_lists(batch["gt_labels"], batch["gt_bboxes"],
+                                           batch["gt_mask"])
+                deferred.append((boxes, scores, labels, valid, sv, targets))
+            if len(deferred) >= max(self.cfg.val_fetch_chunk, 1):
+                flush_deferred()
+            n += 1
+        flush_deferred()
+        loss_sums: Dict[str, float] = {}
+        if metric_accum:
+            keys = sorted(metric_accum[0])  # the JAX package's order, as in train_epoch
+            stacked = torch.stack([torch.stack([m[k] for m in metric_accum]) for k in keys])
+            vals = stacked.cpu().numpy().sum(axis=1)
+            loss_sums = {k: float(v) for k, v in zip(keys, vals)}
+        out = {k: v / max(n, 1) for k, v in loss_sums.items()}
+        if self._match_thresholds is not None:
+            if all_marks:
+                out.update(metrics_from_marks(
+                    np.concatenate(all_marks), np.concatenate(all_scores),
+                    np.concatenate(all_valid), n_gt))
+            else:
+                out.update({"precision": 0.0, "recall": 0.0, "mAP50": 0.0, "mAP50-95": 0.0})
+        else:
+            out.update(evaluate_detections(all_preds, all_targets,
+                                           conf_threshold=self.cfg.val_conf, iou_threshold=0.5))
+        if out.get("prefilter_saturated", 0.0) > 0:
+            # the cap dropped real candidates on some images: the mAP is an
+            # under-estimate against an uncapped evaluator
+            print(f"  ! prefilter cap (pre_nms_topk={self.cfg.pre_nms_topk}) "
+                  f"bound on ~{out['prefilter_saturated']:.0%} of val images "
+                  "— raise it for exact eval")
+        return out
+
+    def fit(self, resume: bool = True) -> Dict[str, Any]:
+        # fresh-run defaults first: a reused Trainer must not carry a stale
+        # plateau clock, best-so-far gates or start epoch into this run;
+        # resume() then restores the persisted values
+        self.best_loss = float("inf")
+        self.best_map50 = 0.0
+        self.start_epoch = 0
+        self.since_improve = 0
+        self.patience_best = -float("inf")
+        if resume:
+            self.resume()
+        history = []
+        for epoch in range(self.start_epoch, self.cfg.epochs):
+            lr = float(self.schedule(epoch * max(len(self.train_loader), 1)))
+            if self._in_final_phase(epoch) and not self._in_final_phase(epoch - 1):
+                print(f"--> final phase: augmentation off (last {self.cfg.final_epochs} "
+                      "epochs)")
+            train_metrics = self.train_epoch(epoch)
+            val_metrics = self.validate()
+
+            parts = " ".join(f"{label} {train_metrics[key]:.4f}"
+                             for label, key in (("box", "box_loss"), ("cls", "cls_loss"),
+                                                ("dfl", "dfl_loss"))
+                             if key in train_metrics)
+            print(f"Epoch {epoch + 1}/{self.cfg.epochs} | lr {lr:.6f} | "
+                  f"train loss {train_metrics.get('loss', float('nan')):.4f} ({parts}) | "
+                  f"{train_metrics.get('imgs_per_sec', 0):.1f} img/s")
+            if val_metrics:
+                print(f"  val loss {val_metrics.get('loss', float('nan')):.4f} | "
+                      f"P {val_metrics.get('precision', 0):.4f} "
+                      f"R {val_metrics.get('recall', 0):.4f} "
+                      f"mAP50 {val_metrics.get('mAP50', 0):.4f} "
+                      f"mAP50-95 {val_metrics.get('mAP50-95', 0):.4f}")
+
+            if self.logger is not None:
+                self.logger.log(epoch, lr=lr,
+                                **{f"train/{k}": v for k, v in train_metrics.items()},
+                                **{f"val/{k}": v for k, v in val_metrics.items()})
+            # the early-stopping counters move BEFORE the save, so a relaunch
+            # stops at the same epoch as an uninterrupted run
+            if self.cfg.patience > 0 and val_metrics:
+                fitness = val_metrics.get("mAP50", -val_metrics.get("loss", float("inf")))
+                if fitness >= self.patience_best:  # a plateau refreshes the clock
+                    self.patience_best, self.since_improve = fitness, 0
+                else:
+                    self.since_improve += 1
+            if self.ckpt is not None:
+                extra = None
+                if self.cfg.patience > 0:
+                    # -inf (no val fitness yet) lands as null in the meta json
+                    extra = {"patience": {"since_improve": self.since_improve,
+                                          "best": self.patience_best}}
+                self.best_loss, self.best_map50, saved = self.ckpt.save_epoch(
+                    self.state, epoch, train_metrics, val_metrics,
+                    self.best_loss, self.best_map50, extra_meta=extra)
+                if saved:
+                    print(f"  ✓ saved best (mAP50 {self.best_map50:.4f})")
+            history.append({"epoch": epoch, "train": train_metrics, "val": val_metrics})
+            if self.cfg.patience > 0 and self.since_improve >= self.cfg.patience:
+                print(f"--> early stop at epoch {epoch + 1}: val fitness below its best "
+                      f"({self.patience_best:.4f}) for {self.cfg.patience} epochs")
+                break
+        return {"history": history, "best_mAP50": self.best_map50,
+                "best_loss": self.best_loss}

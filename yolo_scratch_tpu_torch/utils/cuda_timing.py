@@ -1,9 +1,9 @@
 """Device times on the card, for ``chip_smoke.py`` and the probes.
 
-``call_ms`` and ``device_ms`` read a ``torch.profiler`` trace: the sum of
-device time the trace records, so the wrapper's host work is not in them (a
-short launch ends before the next call has been enqueued, and CUDA events
-around the calls would time the host). ``call_ms`` sums the kernels one
+``call_ms``, ``device_profile`` and ``device_ms`` read a ``torch.profiler``
+trace: the sum of device time the trace records, so the wrapper's host work
+is not in them (a short launch ends before the next call has been enqueued,
+and CUDA events around the calls would time the host). ``call_ms`` sums the kernels one
 call launches (one for the bottleneck; the NMS sweep's mask and reduce)
 and gives each one's time. ``time_ms`` uses CUDA events around
 back-to-back calls: device time where the device is the bottleneck, the
@@ -33,7 +33,8 @@ def _trace(fn: Callable[[], object], reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key]
 
 
 def call_ms(fn: Callable[[], object], kernels: tuple[str, ...],
@@ -56,15 +57,26 @@ def call_ms(fn: Callable[[], object], kernels: tuple[str, ...],
     raise AssertionError(f"profiler saw {seen} launches in {reps} calls")
 
 
-def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
-    """Device time of all kernels and copies of one call of ``fn``, summed
-    (gaps between them are not counted), averaged over ``reps`` calls. A
-    trace with no device work is taken again, up to ``SESSIONS`` times."""
+def device_profile(fn: Callable[[], object], reps: int = 20, top: int = 8) -> dict:
+    """The device work of one call of ``fn``, averaged over ``reps`` calls:
+    ``ms``, the time of all its kernels and copies summed (gaps between them
+    are not counted); ``ops``, their number; ``top``, the ``top`` longest
+    as (name, ms, count). A trace with no device work is taken again, up to
+    ``SESSIONS`` times."""
     for _ in range(SESSIONS):
         rows = _trace(fn, reps)
         if rows:
-            return sum(e.self_device_time_total for e in rows) / reps / 1e3
+            rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+            return dict(ms=sum(e.self_device_time_total for e in rows) / reps / 1e3,
+                        ops=sum(e.count for e in rows) // reps,
+                        top=[(e.key[:70], e.self_device_time_total / reps / 1e3,
+                              e.count // reps) for e in rows[:top]])
     raise AssertionError("profiler saw no device work")
+
+
+def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
+    """The ``ms`` of :func:`device_profile`."""
+    return device_profile(fn, reps)["ms"]
 
 
 def time_ms(fn: Callable[[], object], reps: int, windows: int = 5) -> float:

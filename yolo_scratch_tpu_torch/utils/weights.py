@@ -34,11 +34,13 @@ def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()) -> Iterator:
             yield path, k, v
 
 
-def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` tree of arrays -> port ``state_dict``."""
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        dtype: np.dtype = np.float32) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` tree of arrays -> port ``state_dict``,
+    its floating tensors in ``dtype``."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf, arr in _leaves(variables["params"]):
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        t = torch.from_numpy(np.array(arr, dtype=dtype))
         prefix = ".".join(_split_numeric(p) for p in path)
         if path[-1] == "bn":
             out[f"{prefix}.{_BN_PARAM[leaf]}"] = t
@@ -50,9 +52,19 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             raise ValueError(f"unhandled param {'/'.join(path + (leaf,))}")
     for path, leaf, arr in _leaves(variables.get("batch_stats", {})):
         prefix = ".".join(_split_numeric(p) for p in path)
-        out[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        out[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr, dtype=dtype))
         out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def reference_state_dict(path) -> Dict[str, torch.Tensor]:
+    """The state_dict of a reference-layout checkpoint file: under
+    ``model_state_dict`` or ``model``, else the file itself, without the
+    reference's frozen DFL conv (``dfl`` keys). Tensors only
+    (``weights_only``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt.get("model", ckpt))
+    return {k: v for k, v in sd.items() if "dfl" not in k.split(".")}
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
@@ -64,11 +76,37 @@ def load_reference_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
     counterpart and is dropped. Tensors only (``weights_only``). Every other
     key must match; only ``num_batches_tracked``, which the JAX tree does not
     carry either, may be missing."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model_state_dict", ckpt.get("model", ckpt))
-    sd = {k: v for k, v in sd.items() if "dfl" not in k.split(".")}
+    sd = reference_state_dict(path)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
         raise KeyError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
     return model
+
+
+def merge_pretrained(init: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor],
+                     strict: bool = False) -> Tuple[Dict[str, torch.Tensor], list]:
+    """Overlay ``loaded`` onto the ``init`` state dict (the JAX package's
+    ``utils/torch_import.py::merge_pretrained``, on state dicts): a key
+    missing from ``loaded``, or of another shape (a different nc head or
+    input channels), keeps its init value and is reported. ``strict=True``
+    raises on the first one instead.
+
+    Returns (merged state dict, skipped keys)."""
+    merged: Dict[str, torch.Tensor] = {}
+    skipped: list = []
+    for k, v in init.items():
+        if k not in loaded:
+            if strict:
+                raise KeyError(f"missing {k} in pretrained weights")
+            skipped.append(k)
+            merged[k] = v
+        elif tuple(loaded[k].shape) != tuple(v.shape):
+            if strict:
+                raise ValueError(f"shape mismatch at {k}: {tuple(loaded[k].shape)} vs "
+                                 f"{tuple(v.shape)}")
+            skipped.append(k)
+            merged[k] = v
+        else:
+            merged[k] = loaded[k].to(dtype=v.dtype)
+    return merged, skipped

@@ -11,9 +11,13 @@ Run: ``python -m yolo_scratch_tpu_torch.val --data synthetic --torch-ckpt
 best.pt [--per-class] [--coco-summary]``. Runs on ``cuda`` unless
 ``--device cpu``; it never falls back to the CPU on its own.
 
-Not ported yet: ``--ckpt`` (JAX checkpoints, ROADMAP C5), ``--ema``
-(ROADMAP C3), ``--model yolox`` (ROADMAP E), and the crater and COCO
-datasets (ROADMAP C7b). Each raises.
+``--ckpt <dir> [--which best|last]`` evaluates a checkpoint directory that
+the port's trainer wrote (``train/checkpoints.py``); ``--ema`` evaluates its
+EMA parameters with the live BN statistics.
+
+Not ported yet: ``--model yolox`` (ROADMAP E) and the crater and COCO
+datasets (ROADMAP C7b). Each raises. The JAX package's orbax checkpoint
+directories are not read (ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def main(argv=None):
     p.add_argument("--model", type=str, default="yolo11", choices=["yolo11", "yolox"],
                    help="model family (yolox: not ported, ROADMAP E)")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="JAX checkpoint dir (not ported, ROADMAP C5)")
+                   help="checkpoint dir written by this package's trainer")
     p.add_argument("--which", type=str, default="best", choices=["best", "last"])
     p.add_argument("--torch-ckpt", type=str, default=None,
                    help="reference-layout .pt checkpoint or state_dict")
@@ -57,8 +61,7 @@ def main(argv=None):
     p.add_argument("--coco-summary", action="store_true",
                    help="full COCO 12-metric table: AP/AP50/AP75, AP by area "
                         "band (small/medium/large, ignore semantics), AR@1/10/100")
-    p.add_argument("--ema", action="store_true",
-                   help="evaluate EMA weights (not ported, ROADMAP C3)")
+    p.add_argument("--ema", action="store_true", help="evaluate EMA weights")
     p.add_argument("--host-match", action="store_true",
                    help="reference-style host greedy matcher instead of device marks")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
@@ -66,15 +69,11 @@ def main(argv=None):
 
     if args.model == "yolox":
         raise NotImplementedError("--model yolox: the YOLOX family is not ported (ROADMAP E)")
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: JAX checkpoints are not ported (ROADMAP C5); "
-                                  "use --torch-ckpt")
-    if args.ema:
-        raise NotImplementedError("--ema: the EMA train state is not ported (ROADMAP C3)")
 
     from yolo_scratch_tpu_torch.data.loader import Loader
     from yolo_scratch_tpu_torch.models.builder import build_yolo11
     from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS
+    from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager, check_checkpoint
     from yolo_scratch_tpu_torch.train.cli import make_datasets
     from yolo_scratch_tpu_torch.train.steps import make_eval_step
     from yolo_scratch_tpu_torch.utils.device import resolve_device
@@ -94,6 +93,14 @@ def main(argv=None):
     model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale)
     if args.torch_ckpt:
         load_reference_checkpoint(model, args.torch_ckpt)
+    if args.ckpt:
+        mgr = CheckpointManager(args.ckpt)
+        tree = mgr.load_raw(args.which) if mgr.load_meta(args.which) is not None else None
+        if tree is None:
+            raise FileNotFoundError(f"no checkpoint '{args.which}' under {args.ckpt}")
+        check_checkpoint(tree, model, args.which, ema=args.ema)
+        # --ema: the EMA parameters with the live BN buffers (ema_state_dict)
+        model.load_state_dict({**tree["model"], **(tree["ema"] if args.ema else {})})
     model = model.to(dev).eval()
 
     device_match = not args.host_match
