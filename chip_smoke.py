@@ -91,10 +91,19 @@ from yolo_scratch_tpu_torch.infer import (
     load_deploy_model,
     pack_detections,
 )
+from yolo_scratch_tpu_torch.data.augment import (
+    AugmentConfig,
+    apply_augment,
+    augment_batch,
+    batch_generator,
+    draw_augment,
+)
 from yolo_scratch_tpu_torch.data.loader import Loader
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+from yolo_scratch_tpu_torch.models.yolox import build_yolox, yolox_eval_decode
 from yolo_scratch_tpu_torch.nn.fuse import bottleneck_weights
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck, detect_decode
 from yolo_scratch_tpu_torch.ops import conv_kernels as CK
@@ -116,6 +125,7 @@ from yolo_scratch_tpu_torch.train.steps import (
     make_eval_step,
     precision_scope,
     v8_loss_adapter,
+    yolox_loss_adapter,
 )
 from yolo_scratch_tpu_torch.utils.build import BUILD_DIR
 from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, device_profile, time_ms
@@ -606,21 +616,24 @@ TRAIN_BATCH, TRAIN_EPOCHS = 16, 2
 TRAIN_KEYS = ("loss", "box_loss", "cls_loss", "dfl_loss")
 
 
-def _train_setup(model):
-    """A train state with EMA and the f32 train step (TF32 off) of ``model``,
-    with the schedule of a 10-epoch run of one step an epoch."""
+def _train_setup(model, loss_fn=None):
+    """A train state with EMA and the f32 train step (TF32 off) of ``model``
+    (the v8 loss unless ``loss_fn``), with the schedule of a 10-epoch run of
+    one step an epoch."""
     state = create_train_state(model, make_optimizer(cosine_epoch_schedule(1e-3, 10, 1)),
                                use_ema=True)
-    step = build_train_step_custom(
-        model, v8_loss_adapter(DetectionLossConfig(nc=model.nc, strides=model.strides)),
-        matmul_precision="highest")
+    if loss_fn is None:
+        loss_fn = v8_loss_adapter(DetectionLossConfig(nc=model.nc, strides=model.strides))
+    step = build_train_step_custom(model, loss_fn, matmul_precision="highest")
     return state, step
 
 
-def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3) -> dict:
+def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3, loss_fn=None,
+                        keys=TRAIN_KEYS) -> dict:
     """One train step of ``model`` on ``dev`` against the same step on the
-    CPU, from the same weights on the same batch, f32 with TF32 off. Raises
-    unless: the loss triplet agrees to rtol 1e-4; each gradient tensor lies
+    CPU, from the same weights on the same batch, f32 with TF32 off, with
+    ``loss_fn`` (default: the v8 loss). Raises unless: the loss ``keys``
+    agree to rtol 1e-4 and ``num_fg``, where the loss reports it, exactly; each gradient tensor lies
     within ``grad_tol * max|g_cpu|`` (at least 1e-4 of the largest over all
     tensors: a gradient that is 0 in exact arithmetic holds rounding noise
     only); BN running variances rtol 1e-4, running means within 1e-5; the
@@ -631,12 +644,12 @@ def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3) -> dict:
     runs = {}
     for where in ("cpu", dev):
         m = copy.deepcopy(model).to(where)
-        state, step = _train_setup(m)
+        state, step = _train_setup(m, loss_fn)
         lr = state.tx.lr(state.opt_state.count)
         state, metrics = step(state, batch)
         names = [n for n, _ in m.named_parameters()]
         runs[str(where)] = dict(
-            metrics={k: float(metrics[k]) for k in TRAIN_KEYS}, lr=lr,
+            metrics={k: float(v) for k, v in metrics.items()}, lr=lr,
             grads={n: p.grad.detach().cpu() for n, p in m.named_parameters()},
             sd={k: v.detach().cpu() for k, v in m.state_dict().items()},
             mu=dict(zip(names, (t.cpu() for t in state.opt_state.mu))),
@@ -645,10 +658,13 @@ def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3) -> dict:
     ref, got = runs["cpu"], runs[str(dev)]
     out = {}
     rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
-           for k in TRAIN_KEYS}
+           for k in keys}
     out["loss"] = max(rel.values())
     if out["loss"] > 1e-4:
         raise AssertionError(f"train loss on {dev} differs from the CPU's: {rel}")
+    if got["metrics"].get("num_fg") != ref["metrics"].get("num_fg"):
+        raise AssertionError(f"num_fg on {dev} {got['metrics']['num_fg']} vs the CPU's "
+                             f"{ref['metrics']['num_fg']}")
     if got["counts"] != (1, 1) or ref["counts"] != (1, 1) or got["lr"] != ref["lr"]:
         raise AssertionError(f"counts {got['counts']} / {ref['counts']}, lr {got['lr']} / "
                              f"{ref['lr']}")
@@ -688,10 +704,11 @@ def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3) -> dict:
     return out
 
 
-def train_phase_times(step, state, batch, reps: int = 5) -> dict:
-    """Median ms of each phase of the trainer's own step, timed between CUDA
-    events recorded at the phase ends that ``TrainStep.on_phase`` reports (a
-    phase includes the device's waits for the host)."""
+def train_phase_times(step, state, batch, reps: int = 5, augment=None) -> dict:
+    """Median ms of each phase of the trainer's own step (with ``augment``,
+    its device augmentation too), timed between CUDA events recorded at the
+    phase ends that ``TrainStep.on_phase`` reports (a phase includes the
+    device's waits for the host)."""
     samples = {}
     for _ in range(reps + 1):  # the first pass warms up
         marks = []
@@ -704,7 +721,7 @@ def train_phase_times(step, state, batch, reps: int = 5) -> dict:
         step.on_phase = mark
         try:
             mark("start")
-            step(state, batch)
+            step(state, batch, augment=augment)
         finally:
             step.on_phase = None
         torch.cuda.synchronize()
@@ -839,6 +856,344 @@ def train_phase(dev, ident: str) -> dict:
     return dict(launches=fit_launches)
 
 
+# the YOLOX phase (8): YOLOX-s, the published COCO width, at 640
+YOLOX_SCALE, AUG_BATCH, YOLOX_EPOCHS = "s", 16, 3
+YOLOX_LOSS_KEYS = ("loss", "iou_loss", "obj_loss", "cls_loss")
+YOLOX_AUG = AugmentConfig(hflip_p=0.5, mosaic_p=1.0, mixup_p=1.0)
+
+
+def augment_card_vs_cpu(batch, draws, cfg: AugmentConfig, dev) -> float:
+    """``apply_augment`` of the same draws on the card and on the CPU.
+    Raises unless boxes, labels and masks (mosaic, mixup's union, the flips)
+    are equal, the images (mosaic's gather and the flips exact, mixup's
+    blend and the colour ops rounded) within 1e-5, and every valid box lies
+    in [0, 1] with a width and height above ``min_box_size``. Returns the
+    image's max |card - CPU|."""
+    cpu = apply_augment({k: torch.as_tensor(v) for k, v in batch.items()}, draws.to("cpu"), cfg)
+    card = apply_augment(batch_to_device(batch, dev), draws.to(dev), cfg)
+    for k in ("gt_bboxes", "gt_labels", "gt_mask"):
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise AssertionError(f"augmented {k} differ between the card and the CPU")
+    err = float((card["img"].cpu() - cpu["img"]).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"augmented images differ by {err:.3g} (limit 1e-5)")
+    bb, m = cpu["gt_bboxes"], cpu["gt_mask"]
+    v = bb[m]
+    if not bool(m.any()) or float(v.min()) < 0 or float(v.max()) > 1 or not bool(
+            (((v[:, 2] - v[:, 0]) > cfg.min_box_size)
+             & ((v[:, 3] - v[:, 1]) > cfg.min_box_size)).all()):
+        raise AssertionError("an augmented box lies outside [0, 1] or under min_box_size")
+    return err
+
+
+def augment_phase(dev, ident: str) -> dict:
+    """8(a): ``augment_batch``'s pipeline on the card against the CPU, same
+    draws, at 640 and B=16 on ch=3 and ch=1, and its device time."""
+    t_phase = time.perf_counter()
+    out = {}
+    for ch in (3, 1):
+        batch = next(iter(Loader(SyntheticDataset(n=AUG_BATCH, img_size=IMGSZ, channels=ch),
+                                 AUG_BATCH, max_gt=100, prefetch=0)))
+        draws = draw_augment(batch_generator(43, 0, ch), AUG_BATCH, ch, YOLOX_AUG)
+        err = augment_card_vs_cpu(batch, draws, YOLOX_AUG, dev)
+        b = batch_to_device(batch, dev)
+        gen = torch.Generator(device=dev).manual_seed(ch)
+        prof = device_profile(lambda: augment_batch(b, gen, YOLOX_AUG), reps=5)
+        wall = time_ms(lambda: augment_batch(b, gen, YOLOX_AUG), reps=5, windows=3)
+        out[ch] = prof["ms"]
+        log(f"augment (mosaic 1.0, mixup 1.0, hflip 0.5, {'HSV' if ch == 3 else 'gray'}) at "
+            f"B={AUG_BATCH}, {IMGSZ}x{IMGSZ}x{ch}: card equals the CPU on the same draws "
+            f"(boxes, labels, masks exact; images max|d| {err:.3g}, limit 1e-5), "
+            f"{int(draws.mosaic.apply.sum())} mosaics, {int(draws.mixup.apply.sum())} mixups; "
+            f"{prof['ms']:.3f} ms device in {prof['ops']} ops, {wall:.3f} ms wall per batch "
+            f"(draws included) on {ident}")
+    log(f"augment phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def plain_yolox_packed(pred: Predictor, feats) -> torch.Tensor:
+    """The YOLOX Predictor's postprocess with the plain sweep in place of
+    kernel #1."""
+    cfg, m = pred.cfg, pred.model
+    decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
+    boxes, scores, labels, valid = _prefilter_batched(decoded, cfg.conf_threshold,
+                                                      cfg.pre_nms_topk)
+    keep = K._cap(K.nms_sweep_batched_plain(boxes, valid, cfg.iou_threshold), cfg.max_det)
+    return pack_detections(*_finish(boxes, scores, labels, keep, cfg.max_det, cfg.img_size))
+
+
+def yolox_predictor_phase(dev, ident: str) -> dict:
+    """8(b): the YOLOX-s Predictor (ch=3, nc=80, seeded init) at 640, B=32."""
+    B, S = BATCH, IMGSZ
+    t_phase = time.perf_counter()
+    xs = [np.random.RandomState(300 + i).randint(0, 256, (B, S, S, 3), dtype=np.uint8)
+          for i in range(3)]
+    model = load_deploy_model(scale=YOLOX_SCALE, seed=0, device=dev, model_kind="yolox")
+    pred = Predictor(model, PredictorConfig(img_size=S, batch_size=B), device=dev)
+    K.reset_launches()
+    for x in xs:
+        check_packed(pred.predict_batch(x), B, 300)
+    torch.cuda.synchronize()
+    main = dict(K.launches)
+    log(f"YOLOX-{YOLOX_SCALE} predict_batch (3 batches of {B}): launches {main}")
+    if main["nms_sweep_batched"] == 0:
+        raise AssertionError("the YOLOX Predictor never launched the batched NMS kernel")
+
+    pred0 = Predictor(model, PredictorConfig(img_size=S, batch_size=B, conf_threshold=0.0),
+                      device=dev)
+    with torch.inference_mode():
+        feats = pred0.forward_feats(xs[0])
+        got, ref = pred0.postprocess_feats(feats), plain_yolox_packed(pred0, feats)
+        check_packed(got, B, 300)
+        if not torch.equal(got, ref):
+            raise AssertionError("YOLOX conf-0 detections differ from the plain sweep")
+        log(f"YOLOX conf=0 detections equal the plain sweep's ({int(got[..., 6].sum())} kept "
+            f"over {B} images)")
+        decoded = yolox_eval_decode([f.float() for f in pred.forward_feats(xs[1][:1])],
+                                    model.nc, model.strides)
+        K.reset_launches()
+        got1 = postprocess(decoded, S, conf_threshold=0.0, pre_nms_topk=512, nms_impl="kernel")
+        torch.cuda.synchronize()
+        b1 = dict(K.launches)
+        boxes, scores, labels, valid = _prefilter_batched(decoded, 0.0, 512)
+        keep = K._cap(K.nms_sweep_plain(boxes[0], valid[0], IOU)[None], 300)
+        ref1 = _finish(boxes, scores, labels, keep, 300, S)
+    if b1["nms_sweep"] != 1 or not all(torch.equal(g, r) for g, r in zip(got1, ref1)):
+        raise AssertionError(f"YOLOX B=1 postprocess: launches {b1}, or it differs from the "
+                             "plain sweep")
+    log(f"YOLOX B=1 postprocess path: launches {b1}, equal to the plain sweep")
+    forward_check(f"YOLOX-{YOLOX_SCALE} (ch=3, nc=80)", model, xs[1][:2], dev)
+
+    pred.predict_batch(xs[0])
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for i in range(n):
+        pred.predict_batch(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    prof = device_profile(lambda: pred.predict_batch(xs[0]), reps=5)
+    log(f"YOLOX-{YOLOX_SCALE} Predictor: {B / wall * 1e3:.1f} img/s at B={B}, {S}x{S}, "
+        f"{wall:.2f} ms/batch wall, {prof['ms']:.2f} ms device in {prof['ops']} ops (busy "
+        f"{prof['ms'] / wall:.3f}; bf16, BN folded, f32 decode, conf 0.25) on {ident}")
+    log(f"YOLOX Predictor phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(main=main, b1=b1)
+
+
+def yolox_eval_weights(path):
+    """YOLOX-s on the synthetic set's shape (ch=1, nc=5), seeded init, with
+    the obj and cls prediction biases at +2: every anchor scores about
+    0.88^2 = 0.78 and passes 0.25, so kernel #1 sweeps 2048 valid boxes an
+    image."""
+    model = build_yolox(YOLOX_SCALE, nc=5, ch=1, seed=7)
+    with torch.no_grad():
+        for i in range(model.head.levels):
+            for kind in ("cls", "obj"):
+                getattr(model.head, f"{kind}_pred_{i}").bias.fill_(2.0)
+    torch.save(model.state_dict(), path)
+    return model
+
+
+def yolox_eval_phase(dev, ident: str) -> dict:
+    """8(c): ``val.main --model yolox`` at 640, B=32, then one batch held
+    against the plain sweep and the CPU's marks, then times."""
+    from yolo_scratch_tpu_torch import val
+
+    B = BATCH
+    t_phase = time.perf_counter()
+    weights = BUILD_DIR / "yolox_eval_weights.pt"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    model = yolox_eval_weights(weights)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = val.main(["--data", "synthetic", "--model", "yolox", "--scale", YOLOX_SCALE,
+                    "--imgsz", str(IMGSZ), "--batch", str(B), "--max-batches", str(EVAL_BATCHES),
+                    "--torch-ckpt", str(weights)])
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    log(f"YOLOX eval path (val.main --model yolox, {EVAL_BATCHES} batches of {B}): launches "
+        f"{dict(K.launches)}, {time.perf_counter() - t0:.1f} s; " + json.dumps(out))
+    if launches != EVAL_BATCHES or not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"val.main --model yolox: launches {launches}, metrics {out}")
+
+    batch = next(iter(Loader(SyntheticDataset(n=64, img_size=IMGSZ), B, max_gt=100,
+                             prefetch=0)))
+    model = model.to(dev).eval()
+    step = make_eval_step(
+        model, loss_fn=yolox_loss_adapter(YOLOXLossConfig(nc=5, strides=model.strides)),
+        decode_fn=lambda f: yolox_eval_decode(f, 5, model.strides),
+        match_thresholds=DEFAULT_THRESHOLDS, per_class=True)
+    b = batch_to_device(batch, dev)
+    feats = step.forward(b)
+    K.reset_launches()
+    metrics, dets, marks, marks_cls = step.from_feats(feats, b)
+    torch.cuda.synchronize()
+    if K.launches["nms_sweep_batched"] != 1:
+        raise AssertionError(f"one YOLOX eval step launched kernel #1 {K.launches} times")
+    with torch.inference_mode():
+        decoded = yolox_eval_decode(feats, 5, model.strides)
+        boxes, scores, labels, valid = _prefilter_batched(decoded, 0.25, EVAL_TOPK)
+        swept = K.nms_sweep_batched_plain(boxes, valid, IOU)
+        ref = _finish(boxes, scores, labels, K._cap(swept, 300), 300, IMGSZ)
+    if not all(torch.equal(g, r) for g, r in zip(dets, ref)):
+        raise AssertionError("YOLOX eval-step detections differ from the plain sweep's")
+    pb, _, pl, pv = (t.cpu() for t in dets)
+    gt = {k: torch.from_numpy(batch[k]) for k in ("gt_bboxes", "gt_mask", "gt_labels")}
+    if not (torch.equal(marks.cpu(), batched_tp_marks(pb, pv, gt["gt_bboxes"], gt["gt_mask"]))
+            and torch.equal(marks_cls.cpu(), batched_tp_marks(
+                pb, pv, gt["gt_bboxes"], gt["gt_mask"], pred_labels=pl,
+                gt_labels=gt["gt_labels"]))):
+        raise AssertionError("YOLOX eval-step marks differ from the CPU's")
+    ms, split = call_ms(lambda: K.nms_sweep_batched(boxes, valid, IOU), NMS_SYMBOLS)
+    bound_ms, bound_by = bound(swept, boxes.shape[1])
+    log(f"YOLOX eval step, one batch: detections equal the plain sweep's and marks the CPU's "
+        f"exactly; {int(valid.sum())} swept (N={boxes.shape[1]}), {int(swept.sum())} survive, "
+        f"{int(dets[3].sum())} kept, num_fg {float(metrics['num_fg']):.1f}; kernel #1 on these "
+        f"candidates {ms:.4f} ms (mask {split[NMS_SYMBOLS[0]]:.4f} + reduce "
+        f"{split[NMS_SYMBOLS[1]]:.4f}), bound {bound_ms:.6f} ms ({bound_by})")
+
+    step(batch)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    prof = device_profile(lambda: step(batch), reps=3)
+    log(f"YOLOX eval step at B={B}, {IMGSZ}x{IMGSZ} (f32, TF32 off, N={EVAL_TOPK}): "
+        f"{B / wall * 1e3:.1f} img/s, {wall:.2f} ms/batch wall, {prof['ms']:.2f} ms device in "
+        f"{prof['ops']} ops (busy {prof['ms'] / wall:.3f}) on {ident}")
+    log(f"YOLOX eval phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
+def write_crater_tree(root, n_images: int = 10, seed: int = 0) -> None:
+    """A small crater tree in the reference layout
+    (``altitude*/longitude*/truth/detections.csv``, images beside ``truth``),
+    grayscale PNGs written with cv2."""
+    import csv
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    for alt in ("altitude10", "altitude20"):
+        site = root / alt / "longitude5"
+        (site / "truth").mkdir(parents=True)
+        rows = []
+        for i in range(n_images // 2):
+            h, w = int(rng.randint(400, 700)), int(rng.randint(400, 700))
+            img = (rng.rand(h, w) * 80 + 100).astype(np.uint8)
+            for _ in range(int(rng.randint(2, 6))):
+                a, b = rng.uniform(10, 50), rng.uniform(8, 40)
+                cx, cy = rng.uniform(60, w - 60), rng.uniform(60, h - 60)
+                cv2.ellipse(img, (int(cx), int(cy)), (int(a), int(b)), 0, 0, 360, 40, -1)
+                rows.append({"inputImage": f"img{i}.png", "ellipseCenterX(px)": cx,
+                             "ellipseCenterY(px)": cy, "ellipseSemimajor(px)": a,
+                             "ellipseSemiminor(px)": b,
+                             "crater_classification": int(rng.randint(0, 5))})
+            cv2.imwrite(str(site / f"img{i}.png"), img)
+        with open(site / "truth" / "detections.csv", "w", newline="") as fh:
+            wtr = csv.DictWriter(fh, fieldnames=list(rows[0]))
+            wtr.writeheader()
+            wtr.writerows(rows)
+
+
+def yolox_train_phase(dev, ident: str) -> dict:
+    """8(d): one YOLOX step card vs CPU, then ``train.cli.main`` with the
+    YOLOX recipe, then the step's phases with augmentation; 8(e): one epoch
+    on a crater tree the script writes (cv2 decodes it)."""
+    from yolo_scratch_tpu_torch.data import native
+    from yolo_scratch_tpu_torch.train import cli as train_cli
+
+    B = TRAIN_BATCH
+    t_phase = time.perf_counter()
+    data = SyntheticDataset(n=64, img_size=IMGSZ)
+    batch = next(iter(Loader(data, B, max_gt=100, prefetch=0)))
+    loss_fn = yolox_loss_adapter(YOLOXLossConfig(nc=5))
+    model = build_yolox(YOLOX_SCALE, nc=5, ch=1, seed=0)
+    errs = compare_train_steps(model, {k: v[:2] for k, v in batch.items()}, dev,
+                               loss_fn=loss_fn, keys=YOLOX_LOSS_KEYS)
+    log("YOLOX train step on 2 images, card vs CPU (TF32 off): " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + " (limits: loss rtol 1e-4, num_fg equal, "
+        "grad 1e-3 of max|g_cpu|, running_var rtol 1e-4, running_mean 1e-5)")
+
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as save_dir:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--data", "synthetic", "--model", "yolox", "--scale", YOLOX_SCALE,
+                              "--imgsz", str(IMGSZ), "--batch", str(B), "--epochs",
+                              str(YOLOX_EPOCHS), "--final-epochs", "1", "--mosaic", "1.0",
+                              "--mixup", "1.0", "--ema", "--save-dir", save_dir])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        n_val = int(len(data) * 0.2)
+        val_batches = -(-n_val // B)
+        launches += K.launches["nms_sweep_batched"]
+        log(f"YOLOX train path (train.cli.main --model yolox --mosaic 1.0 --mixup 1.0 "
+            f"--final-epochs 1, {YOLOX_EPOCHS} epochs at B={B}): launches {dict(K.launches)}, "
+            f"{fit_s:.1f} s")
+        if K.launches["nms_sweep_batched"] != val_batches * YOLOX_EPOCHS:
+            raise AssertionError(f"fit launched kernel #1 {K.launches} times; want "
+                                 f"{val_batches} x {YOLOX_EPOCHS}")
+        hist = out["history"]
+        l1 = [h["train"]["l1_loss"] for h in hist]
+        if l1[:-1] != [0.0] * (YOLOX_EPOCHS - 1) or not l1[-1] > 0:
+            raise AssertionError(f"l1_loss by epoch {l1}: want 0 before the final phase, > 0 in it")
+        for h in hist:
+            if not all(np.isfinite(v) for part in ("train", "val") for v in h[part].values()):
+                raise AssertionError(f"non-finite metrics in epoch {h['epoch']}: {h}")
+            log(f"  epoch {h['epoch']}: train loss {h['train']['loss']:.4f} (l1 "
+                f"{h['train']['l1_loss']:.4f}, num_fg {h['train']['num_fg']:.1f}), "
+                f"{h['train']['imgs_per_sec']:.1f} img/s over the epoch; val loss "
+                f"{h['val']['loss']:.4f}, mAP50 {h['val']['mAP50']:.4g}")
+
+    # the step with the recipe's augmentation, at B=16
+    model = build_yolox(YOLOX_SCALE, nc=5, ch=1, seed=0, device=dev)
+    state, step = _train_setup(model, loss_fn)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    aug = lambda b: augment_batch(b, gen, YOLOX_AUG)  # noqa: E731
+    phases = train_phase_times(step, state, batch, augment=aug)
+    step(state, batch, augment=aug)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch, augment=aug)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    tr = device_profile(lambda: step(state, batch, augment=aug), reps=3)
+    log(f"YOLOX train step at B={B}, {IMGSZ}x{IMGSZ} (f32, TF32 off, EMA, mosaic+mixup+hflip+"
+        f"gray on the card): {B / wall * 1e3:.1f} img/s, {wall:.2f} ms/step wall, "
+        f"{tr['ms']:.2f} ms device (busy {tr['ms'] / wall:.3f}), {tr['ops']} device ops a step; "
+        "phases ms " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()) + f" on {ident}")
+    log("YOLOX train step, top device activities (ms a step, count): " + "; ".join(
+        f"{name} {ms:.2f} x{c}" for name, ms, c in tr["top"]))
+
+    # (e) the crater reader on the card's machine: cv2 decodes (no libpng there)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        from pathlib import Path
+
+        write_crater_tree(Path(root) / "data")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--data", str(Path(root) / "data"), "--model", "yolox", "--scale",
+                              YOLOX_SCALE, "--imgsz", str(IMGSZ), "--batch", "4", "--epochs", "1",
+                              "--mosaic", "1.0", "--save-dir", str(Path(root) / "run")])
+        torch.cuda.synchronize()
+        h = out["history"][0]
+        if K.launches["nms_sweep_batched"] != 1 or not np.isfinite(h["train"]["loss"]):
+            raise AssertionError(f"crater epoch: launches {K.launches}, history {h}")
+        launches += 1
+        log(f"crater tree (10 PNGs written with cv2; native decoder available: "
+            f"{native.available()}): one YOLOX epoch, train loss {h['train']['loss']:.4f}, "
+            f"val loss {h['val']['loss']:.4f}, launches {dict(K.launches)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"YOLOX train phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, augment_ms=phases.get("augment"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -864,12 +1219,18 @@ def main() -> int:
     timed["fused_bottleneck"] = bn["row"]
     ev = eval_phase(dev, ident)
     tr = train_phase(dev, ident)
+    augment_phase(dev, ident)
+    yp = yolox_predictor_phase(dev, ident)
+    ye = yolox_eval_phase(dev, ident)
+    yt = yolox_train_phase(dev, ident)
 
-    # kernel #1 runs on three paths: the Predictor's, the eval step's and the
-    # trainer's validation
+    # kernel #1 runs on the Predictor's, the eval step's and the trainer's
+    # validation paths of both families; #2 on the B=1 postprocess of both
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
-                                      + tr["launches"]),
-                "nms_sweep": sl["b1"]["nms_sweep"], "fused_bottleneck": bn["launches"]}
+                                      + tr["launches"] + yp["main"]["nms_sweep_batched"]
+                                      + ye["launches"] + yt["launches"]),
+                "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
+                "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
                   launches=launches[name], **timed[name])
              for name, spec in KERNELS.items()]

@@ -297,11 +297,14 @@ def test_eval_step_on_the_same_maps_matches_jax():
 
 
 def test_eval_step_options_not_ported_raise():
+    """Every eval-step option is ported now: ``loss_fn`` and ``decode_fn``
+    (the YOLOX path) replace the v8 loss and the fused decode. An unknown
+    matmul precision still raises."""
     model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=NC)
-    with pytest.raises(NotImplementedError, match="ROADMAP E"):
-        tsteps.make_eval_step(model, loss_fn=lambda f, b: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP E"):
-        tsteps.make_eval_step(model, decode_fn=lambda f: None)
+    decode = lambda f: model.decode(f)  # noqa: E731
+    step = tsteps.make_eval_step(model, loss_fn=lambda f, b: (torch.zeros(()), {}),
+                                 decode_fn=decode)
+    assert step.decode_fn is decode and step.loss_fn(None, None)[1] == {}
     with pytest.raises(ValueError, match="matmul_precision"):
         with tsteps.precision_scope("fastest"):
             pass
@@ -372,8 +375,7 @@ def test_val_runs_on_cuda_by_default_and_never_falls_back(monkeypatch, ckpt):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tval.main(["--imgsz", "64", "--max-batches", "1"])
-    for flags, item in [(["--model", "yolox"], "E"), (["--data", "/nonexistent"], "C7b")]:
-        with pytest.raises(NotImplementedError, match=item):
-            tval.main(flags + ["--device", "cpu", "--imgsz", "64"])
+    with pytest.raises(FileNotFoundError, match="no COCO annotations"):  # not a dataset
+        tval.main(["--data", "/nonexistent", "--device", "cpu", "--imgsz", "64"])
     with pytest.raises(FileNotFoundError, match="no checkpoint"):  # --ckpt: an empty dir
         tval.main(["--ckpt", str(Path(ckpt).parent), "--device", "cpu", "--imgsz", "64"])

@@ -10,6 +10,10 @@ card.
   the JAX tests' tolerance, at every C up to 512. The folded module: f32 at 2e-4 (TF32 off), bf16 within
   0.03 of max|ref| (cuDNN rounds the conv output to bf16 before its bias and
   SiLU; the kernel does not).
+* The YOLOX Predictor (kernel #1 at B > 1, #2 at B = 1): its detections
+  equal the same maps through the f32 decode and the plain sweep, exactly.
+  Device augmentation: the card against the CPU on the same draws, boxes,
+  labels and masks exact, images within 1e-5 (``chip_smoke.py`` 8(a)).
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -323,3 +327,63 @@ def test_bf16_train_step_on_the_card_computes_in_bf16(cuda):
             if t.is_floating_point():
                 assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
     np.testing.assert_allclose(losses[torch.bfloat16], losses[None], rtol=0.15)
+
+
+@pytest.mark.parametrize("B", [4, 1])
+def test_yolox_predictor_matches_plain_sweep(cuda, B):
+    """YOLOX-nano (priors at 0.5) at 64 px, conf 0: the Predictor's packed
+    detections equal ``postprocess`` of its own maps through the plain
+    sweep; it launches kernel #1 at B > 1 and kernel #2 at B = 1."""
+    from chip_smoke import plain_yolox_packed
+    from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig
+    from yolo_scratch_tpu_torch.models.yolox import build_yolox
+
+    model = build_yolox("nano", nc=5, ch=3, seed=1)
+    with torch.no_grad():
+        for i in range(3):
+            for k in ("cls", "obj"):
+                getattr(model.head, f"{k}_pred_{i}").bias.zero_()
+    pred = Predictor(model, PredictorConfig(img_size=64, batch_size=B, conf_threshold=0.0),
+                     device=cuda)
+    x = np.random.RandomState(B).randint(0, 256, (B, 64, 64, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        before = dict(K.launches)
+        got = pred.postprocess_feats(feats)
+        torch.cuda.synchronize()
+        name = "nms_sweep_batched" if B > 1 else "nms_sweep"
+        assert K.launches[name] == before[name] + 1
+        assert torch.equal(got, plain_yolox_packed(pred, feats))
+    assert int(got[..., 6].sum()) > 0
+
+
+@pytest.mark.parametrize("ch", [3, 1])
+def test_augment_on_the_card_matches_cpu(cuda, ch):
+    from chip_smoke import YOLOX_AUG, augment_card_vs_cpu
+    from yolo_scratch_tpu_torch.data.augment import batch_generator, draw_augment
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+
+    # 96 px: the crop offsets' quotients by H and W are inexact (CUDA's
+    # division by a Python scalar is a reciprocal multiply; 64 would hide it)
+    batch = next(iter(Loader(SyntheticDataset(n=8, img_size=96, channels=ch), 8, max_gt=8,
+                             prefetch=0)))
+    draws = draw_augment(batch_generator(0, 1, ch), 8, ch, YOLOX_AUG)
+    assert augment_card_vs_cpu(batch, draws, YOLOX_AUG, cuda) <= 1e-5
+
+
+def test_yolox_train_step_on_the_card_matches_cpu(cuda):
+    """One YOLOX-nano step at 64 px, B=4, f32 with TF32 off, card against
+    CPU at ``chip_smoke.py`` 8(d)'s tolerances (``compare_train_steps``)."""
+    from chip_smoke import YOLOX_LOSS_KEYS, compare_train_steps
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+    from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
+    from yolo_scratch_tpu_torch.models.yolox import build_yolox
+    from yolo_scratch_tpu_torch.train.steps import yolox_loss_adapter
+
+    batch = next(iter(Loader(SyntheticDataset(n=4, img_size=64), 4, max_gt=8, prefetch=0)))
+    errs = compare_train_steps(build_yolox("nano", nc=5, ch=1), batch, cuda,
+                               loss_fn=yolox_loss_adapter(YOLOXLossConfig(nc=5)),
+                               keys=YOLOX_LOSS_KEYS)
+    assert errs["loss"] <= 1e-4 and errs["grad"] <= 1e-3

@@ -4,7 +4,9 @@ decode + letterbox on a thread pool), the port's own copy of
 
 The library is compiled with g++ at first use into the port's build
 directory (never into ``csrc/``). There is no cv2 fallback: if it cannot be
-built, :func:`prepare_batch` raises with the compiler's output.
+built, :func:`prepare_batch` and :func:`decode_file` raise with the
+compiler's output, and :func:`available` says False (the dataset readers
+then decode through cv2 or PIL, as the JAX package's do).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from yolo_scratch_tpu_torch.utils.build import BUILD_DIR, PKG, compile_library
 
 _SOURCE = PKG.parent / "csrc" / "yst_host.cpp"
 _lib: ctypes.CDLL | None = None
+_load_error: Exception | None = None
 
 
 def load() -> ctypes.CDLL:
@@ -44,8 +47,36 @@ def load() -> ctypes.CDLL:
     lib.yst_prepare_batch.restype = None
     lib.yst_prepare_batch_u8.argtypes = [*args, ctypes.POINTER(ctypes.c_uint8), *outs]
     lib.yst_prepare_batch_u8.restype = None
+    lib.yst_decode_file.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.yst_decode_file.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.yst_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the host library builds and loads here (tried once)."""
+    global _load_error
+    if _lib is None and _load_error is None:
+        try:
+            load()
+        except (RuntimeError, OSError) as e:  # no compiler, no libpng/libjpeg
+            _load_error = e
+    return _lib is not None
+
+
+def decode_file(path: str, channels: int = 1) -> np.ndarray:
+    """Decode one PNG/JPEG -> (h, w, channels) uint8."""
+    lib = load()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    ptr = lib.yst_decode_file(str(path).encode(), channels, ctypes.byref(w), ctypes.byref(h))
+    if not ptr:
+        raise IOError(f"native decode failed: {path}")
+    n = w.value * h.value * channels
+    arr = np.ctypeslib.as_array(ptr, shape=(n,)).copy().reshape(h.value, w.value, channels)
+    lib.yst_free(ptr)
+    return arr
 
 
 def prepare_batch(

@@ -1,17 +1,19 @@
 """Batched streaming inference, the deploy path (port of ``infer.py``).
 
 Pipeline: native C++ host decode + letterbox (``csrc/yst_host.cpp``) ->
-uint8 batch to the device -> BN-folded bf16 forward (cuDNN) -> fused
-select-then-decode -> greedy NMS on the hand-written CUDA kernel ->
-(B, max_det, 7) packed detections -> boxes mapped back to original-image
-pixels. Device work is asynchronous, so host prep of the next batches
-overlaps it (``PredictorConfig.inflight``).
+uint8 batch to the device -> BN-folded bf16 forward (cuDNN) -> decode ->
+greedy NMS on the hand-written CUDA kernel -> (B, max_det, 7) packed
+detections -> boxes mapped back to original-image pixels. The decode follows
+the family: YOLO11 (DFL head) takes the fused select-then-decode, YOLOX
+``yolox_eval_decode`` in f32 and the common ``postprocess``. Device work is
+asynchronous, so host prep of the next batches overlaps it
+(``PredictorConfig.inflight``).
 
 CLI: ``python -m yolo_scratch_tpu_torch.infer --images <dir> [--weights
-state_dict.pt] --out preds.json``. Runs on ``cuda`` unless ``--device cpu``.
+state_dict.pt] [--model auto|yolo11|yolox] --out preds.json``. Runs on
+``cuda`` unless ``--device cpu``.
 
-Not ported yet: the YOLOX family, ``shard_over``, int8 serving, orbax
-checkpoints.
+Not ported yet: ``shard_over``, int8 serving, orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -27,8 +29,16 @@ import numpy as np
 import torch
 
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, YOLOModel, build_yolo11, dims_from_params
+from yolo_scratch_tpu_torch.models.yolox import (
+    SCALES as YOLOX_SCALES,
+    YOLOXModel,
+    build_yolox,
+    scale_name,
+    yolox_arch_from_params,
+    yolox_eval_decode,
+)
 from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
-from yolo_scratch_tpu_torch.ops.decode import postprocess_from_feats
+from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.utils.device import resolve_device
 
 
@@ -65,11 +75,11 @@ def pack_detections(boxes, scores, labels, valid) -> torch.Tensor:
 
 
 class Predictor:
-    """Batched streaming predictor over a YOLO11 (builder) model. The model
-    is copied, BN-folded (``fuse_bn``), cast (``bf16``) and moved to
-    ``device`` (default ``cuda``; raises if there is no GPU)."""
+    """Batched streaming predictor over a YOLO11 (builder) or YOLOX model.
+    The model is copied, BN-folded (``fuse_bn``), cast (``bf16``) and moved
+    to ``device`` (default ``cuda``; raises if there is no GPU)."""
 
-    def __init__(self, model: YOLOModel, config: PredictorConfig = PredictorConfig(),
+    def __init__(self, model: YOLOModel | YOLOXModel, config: PredictorConfig = PredictorConfig(),
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.cfg = config
@@ -79,7 +89,12 @@ class Predictor:
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
-        self.in_ch = model.in_ch
+        # family dispatch: the YOLO11 builder family has a DFL head (reg_max)
+        self.is_dfl = hasattr(model, "reg_max")
+        # YOLOX reads its input channels off the stem (host prep decodes
+        # gray or RGB by it)
+        self.in_ch = (model.in_ch if self.is_dfl
+                      else yolox_arch_from_params(model.state_dict())[0])
 
     @torch.inference_mode()
     def forward_feats(self, imgs) -> List[torch.Tensor]:
@@ -93,14 +108,19 @@ class Predictor:
 
     @torch.inference_mode()
     def postprocess_feats(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Raw Detect maps -> (B, max_det, 7) packed detections."""
+        """Raw head maps -> (B, max_det, 7) packed detections."""
         cfg, m = self.cfg, self.model
-        return pack_detections(*postprocess_from_feats(
-            feats, nc=m.nc, strides=m.strides, reg_max=m.reg_max,
-            img_size=cfg.img_size, conf_threshold=cfg.conf_threshold,
-            iou_threshold=cfg.iou_threshold, max_det=cfg.max_det,
-            pre_nms_topk=cfg.pre_nms_topk, class_aware=cfg.class_aware_nms,
-            nms_impl=cfg.nms_impl))
+        common = dict(img_size=cfg.img_size, conf_threshold=cfg.conf_threshold,
+                      iou_threshold=cfg.iou_threshold, max_det=cfg.max_det,
+                      pre_nms_topk=cfg.pre_nms_topk, class_aware=cfg.class_aware_nms,
+                      nms_impl=cfg.nms_impl)
+        if self.is_dfl:
+            return pack_detections(*postprocess_from_feats(
+                feats, nc=m.nc, strides=m.strides, reg_max=m.reg_max, **common))
+        # YOLOX decodes in f32: bf16 box coordinates quantise to ~2.5 px at
+        # 640 (exp(wh) * stride is the sensitive part)
+        decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
+        return pack_detections(*postprocess(decoded, **common))
 
     def predict_batch(self, imgs) -> torch.Tensor:
         """(B, S, S, C) images -> (B, max_det, 7) packed detections on the
@@ -178,17 +198,37 @@ def load_deploy_model(
     nc: int | None = None,
     seed: int = 0,
     device: str | torch.device | None = None,
-) -> YOLOModel:
+    model_kind: str = "auto",
+) -> YOLOModel | YOLOXModel:
     """Build the model a deploy CLI serves: from a port ``state_dict`` file
     (``weights``; ch/nc read off it unless given) or a seeded init.
-    Explicit ``ch``/``nc`` win; the defaults are the crater model's 1/5."""
+    Explicit ``ch``/``nc`` win. ``model_kind="auto"`` reads the family off
+    the weights (a ``backbone.`` key means YOLOX, whose depth and width are
+    read off too; ``yolox_arch_from_params``) and is YOLO11 without them.
+    The defaults are the crater model's 1/5 for YOLO11 and COCO's 3/80 for
+    YOLOX (``scale`` "n" means nano there)."""
     dev = resolve_device(device)
     state = None
     if weights:
         state = torch.load(weights, map_location="cpu", weights_only=True)
-        d_ch, d_nc = dims_from_params(state)
-        ch, nc = ch or d_ch, nc or d_nc
-    model = build_yolo11(cfg_path, ch=ch or 1, nc=nc or 5, scale=scale, seed=seed)
+        if model_kind == "auto":
+            model_kind = "yolox" if any(k.startswith("backbone.") for k in state) else "yolo11"
+    if model_kind == "yolox":
+        if state is not None:
+            d_ch, d_nc, depth, width = yolox_arch_from_params(state)
+            model = build_yolox(nc=nc or d_nc, ch=ch or d_ch, seed=seed, depth=depth,
+                                width=width)
+        else:
+            yx = scale_name(scale)
+            if yx not in YOLOX_SCALES:
+                raise ValueError(f"unknown YOLOX scale {scale!r}; choose from "
+                                 f"{sorted(YOLOX_SCALES)} (or 'n' for nano)")
+            model = build_yolox(yx, nc=nc or 80, ch=ch or 3, seed=seed)
+    else:
+        if state is not None:
+            d_ch, d_nc = dims_from_params(state)
+            ch, nc = ch or d_ch, nc or d_nc
+        model = build_yolo11(cfg_path, ch=ch or 1, nc=nc or 5, scale=scale, seed=seed)
     if state is not None:
         model.load_state_dict(state)
     return model.to(dev)
@@ -212,6 +252,8 @@ def main(argv=None):
     p.add_argument("--stretch", action="store_true", help="stretch-resize (reference semantics)")
     p.add_argument("--nc", type=int, default=None, help="class count (default: from weights)")
     p.add_argument("--ch", type=int, default=None, help="input channels (default: from weights)")
+    p.add_argument("--model", type=str, default="auto", choices=["auto", "yolo11", "yolox"],
+                   help="model family (default: read from the weights)")
     p.add_argument("--class-aware", action="store_true", help="class-aware NMS")
     p.add_argument("--topk", type=int, default=PredictorConfig.pre_nms_topk,
                    help="prefilter cap (pre_nms_topk): the NMS sweep length")
@@ -226,7 +268,8 @@ def main(argv=None):
         raise SystemExit(f"no images under {root}")
 
     model = load_deploy_model(args.cfg, scale=args.scale, weights=args.weights, ch=args.ch,
-                              nc=args.nc, seed=args.seed, device=args.device)
+                              nc=args.nc, seed=args.seed, device=args.device,
+                              model_kind=args.model)
     cfg = PredictorConfig(
         img_size=args.imgsz, batch_size=args.batch, conf_threshold=args.conf,
         iou_threshold=args.iou, letterbox=not args.stretch,

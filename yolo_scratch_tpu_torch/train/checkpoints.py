@@ -73,7 +73,7 @@ def check_checkpoint(tree: Mapping[str, Any], model: torch.nn.Module, name: str,
         mismatch = _mismatch(got, want)
         if mismatch:
             raise ValueError(f"checkpoint '{name}': {key} do not match the model being "
-                             f"restored into ({mismatch}). Wrong --cfg/--scale/--nc/--ch "
+                             f"restored into ({mismatch}). Wrong --model/--cfg/--scale/--nc/--ch "
                              "for this checkpoint?")
     if ema and not tree["ema"]:
         raise ValueError(f"checkpoint '{name}' stores no EMA parameters (trained without "

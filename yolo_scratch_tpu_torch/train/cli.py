@@ -4,10 +4,11 @@ defaults to ``cuda``; there is no fallback to the CPU.
 
 Run: ``python -m yolo_scratch_tpu_torch.train.cli --data synthetic --scale n
 --epochs 2 --ema --save-dir runs/t`` (on the card), or add ``--device cpu``.
+The YOLOX recipe: ``--model yolox --scale s --mosaic 1.0 --mixup 1.0
+--final-epochs 15``.
 
-Not ported, each raising with its ROADMAP item: ``--model yolox`` (E),
-``--mesh`` and ``--multihost`` (F), ``--augment``/``--mosaic``/``--mixup``
-and the crater and COCO datasets (C7b).
+Not ported, raising with its ROADMAP item: ``--mesh`` and ``--multihost``
+(F).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from pathlib import Path
 
 import numpy as np
 
+from yolo_scratch_tpu_torch.data.coco import CocoDataset
+from yolo_scratch_tpu_torch.data.crater import CraterDataset
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
 from yolo_scratch_tpu_torch.models.builder import CONFIGS
 
@@ -40,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "crater", "coco", "synthetic"])
     p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
     p.add_argument("--model", type=str, default="yolo11", choices=["yolo11", "yolox"],
-                   help="model family (yolox: not ported, ROADMAP E)")
+                   help="model family (yolox: --scale n|tiny|s|m|l|x, n = nano)")
     p.add_argument("--scale", type=str, default="s",
                    choices=["n", "s", "m", "l", "x", "nano", "tiny"])
     p.add_argument("--epochs", type=int, default=150)
@@ -81,18 +84,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bn-mode", type=str, default="sync", choices=["sync", "local"],
                    help="BatchNorm under --mesh (ROADMAP F)")
     p.add_argument("--augment", action="store_true",
-                   help="device-side augmentation (not ported, ROADMAP C7b)")
+                   help="device-side augmentation (hflip + color jitter)")
     p.add_argument("--mosaic", type=float, default=0.0,
-                   help="mosaic probability (not ported, ROADMAP C7b)")
+                   help="mosaic probability (implies --augment)")
     p.add_argument("--mixup", type=float, default=0.0,
-                   help="mixup probability (not ported, ROADMAP C7b)")
+                   help="mixup probability, applied after mosaic (YOLOX recipe; implies "
+                        "--augment)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training (not ported, ROADMAP F)")
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--nproc", type=int, default=None)
     p.add_argument("--pid", type=int, default=None)
     p.add_argument("--final-epochs", type=int, default=0,
-                   help="last-N-epochs no-aug phase")
+                   help="last-N-epochs no-aug phase (YOLOX recipe: mosaic off + L1 loss "
+                        "on; the paper uses 15)")
     p.add_argument("--patience", type=int, default=0,
                    help="early stop after N epochs of val fitness (mAP50, -val-loss "
                         "fallback) below its running best; 0 = off")
@@ -101,11 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_datasets(args):
-    """``args.data`` / ``args.dataset`` / ``args.imgsz`` -> (dataset, ch, nc).
-
-    Only the synthetic dataset is ported. The crater and COCO decoders need
-    cv2 or the native host library, which the GPU machine lacks: they wait
-    for ROADMAP C7b and raise here."""
+    """``args.data`` / ``args.dataset`` / ``args.imgsz`` -> (dataset, ch, nc):
+    the synthetic set, a crater tree (``altitude*/longitude*/truth/
+    detections.csv``) or a COCO directory (``annotations/instances*.json``
+    or a top-level ``*.json``, images under ``images/`` or beside it)."""
     kind = args.dataset
     if kind == "auto":
         if args.data == "synthetic":
@@ -116,19 +120,22 @@ def make_datasets(args):
             kind = "coco"
     if kind == "synthetic":
         return SyntheticDataset(n=64, img_size=args.imgsz, channels=1, num_classes=5), 1, 5
-    raise NotImplementedError(f"dataset {kind!r} ({args.data}): only 'synthetic' is ported; "
-                              "the crater and COCO datasets wait for ROADMAP C7b")
+    if kind == "crater":
+        return CraterDataset(args.data, img_size=args.imgsz), 1, 5
+    root = Path(args.data)
+    anns = sorted(root.glob("annotations/instances*.json")) or sorted(root.glob("*.json"))
+    if not anns:
+        raise FileNotFoundError(f"no COCO annotations under {root}")
+    img_dir = root / "images" if (root / "images").is_dir() else root
+    sub = [d for d in img_dir.iterdir() if d.is_dir()]
+    ds = CocoDataset(str(anns[0]), str(sub[0] if sub else img_dir), img_size=args.imgsz)
+    return ds, 3, len(ds.class_names) or 80
 
 
 def _check_ported(args) -> None:
-    if args.model == "yolox":
-        raise NotImplementedError("--model yolox: the YOLOX family is not ported (ROADMAP E)")
     if args.multihost or args.mesh > 1:
         raise NotImplementedError("--mesh / --multihost: multi-GPU training is not ported "
                                   "(ROADMAP F)")
-    if args.augment or args.mosaic > 0 or args.mixup > 0:
-        raise NotImplementedError("--augment / --mosaic / --mixup: device augmentation is not "
-                                  "ported (ROADMAP C7b)")
 
 
 def main(argv=None):
@@ -139,8 +146,10 @@ def main(argv=None):
                          f"--grad-accum {args.grad_accum}")
     _check_ported(args)
 
+    from yolo_scratch_tpu_torch.data.augment import AugmentConfig
     from yolo_scratch_tpu_torch.data.loader import Loader
     from yolo_scratch_tpu_torch.models.builder import build_yolo11
+    from yolo_scratch_tpu_torch.models.yolox import build_yolox, scale_name
     from yolo_scratch_tpu_torch.train.trainer import Trainer, TrainerConfig
     from yolo_scratch_tpu_torch.utils.device import resolve_device
 
@@ -166,9 +175,19 @@ def main(argv=None):
                          prefetch=args.workers, workers=args.workers)
                   if len(val_idx) else None)
 
-    model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale, seed=args.seed, device=dev)
-    print(f"Building {Path(args.cfg).name} scale={args.scale} nc={nc} ch={ch} "
-          f"strides={model.strides} on {dev}")
+    if args.model == "yolox":
+        yx = scale_name(args.scale)
+        model = build_yolox(yx, nc=nc, ch=ch, seed=args.seed, device=dev)
+        print(f"Building YOLOX-{yx} nc={nc} ch={ch} strides={model.strides} on {dev}")
+    else:
+        model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale, seed=args.seed,
+                             device=dev)
+        print(f"Building {Path(args.cfg).name} scale={args.scale} nc={nc} ch={ch} "
+              f"strides={model.strides} on {dev}")
+
+    aug_cfg = None
+    if args.augment or args.mosaic > 0 or args.mixup > 0:
+        aug_cfg = AugmentConfig(mosaic_p=args.mosaic, mixup_p=args.mixup)
 
     cfg = TrainerConfig(
         epochs=args.epochs,
@@ -179,6 +198,7 @@ def main(argv=None):
         save_dir=args.save_dir,
         use_ema=args.ema,
         eval_with_ema=args.ema,
+        augment=aug_cfg,
         mixed_precision=args.bf16,
         remat=args.remat,
         grad_accum=args.grad_accum,
@@ -189,7 +209,8 @@ def main(argv=None):
         patience=args.patience,
     )
     try:
-        trainer = Trainer(model, train_loader, val_loader, cfg, model_kind=args.model)
+        trainer = Trainer(model, train_loader, val_loader, cfg, seed=args.seed,
+                          model_kind=args.model)
         total = sum(p.numel() for p in model.parameters())
         print(f"Total parameters: {total:,} ({total / 1e6:.2f}M)")
         return trainer.fit(resume=args.resume)

@@ -14,11 +14,13 @@ AdamW and the EMA (``train/state.py``). Its metrics are 0-d device tensors:
 no host sync.
 
 An eval step: the batch to the model's device, the forward in eval mode, the
-v8 loss, fused select-then-decode with the top ``pre_nms_topk`` candidates
-through NMS kernel #1 (``ops/nms_kernels.py::nms_sweep_batched``; its plain
-version on a CPU model), and optionally greedy TP marks against the batch GT
-on the device (``ops/matching.py``). Every result stays on the device; the
-caller fetches.
+loss, and the top ``pre_nms_topk`` candidates through NMS kernel #1
+(``ops/nms_kernels.py::nms_sweep_batched``; its plain version on a CPU
+model): for YOLO11 by the fused select-then-decode, for YOLOX by a
+``decode_fn`` (``models/yolox.py::yolox_eval_decode``) and the common
+``postprocess``. Optionally greedy TP marks against the batch GT on the
+device (``ops/matching.py``). Every result stays on the device; the caller
+fetches.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig, v8_detection_loss
 from yolo_scratch_tpu_torch.nn.modules import BatchNorm2d
-from yolo_scratch_tpu_torch.ops.decode import postprocess_from_feats
+from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig, yolox_loss
+from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.ops.matching import batched_tp_marks
 from yolo_scratch_tpu_torch.train.state import ema_state_dict
 
@@ -44,6 +47,16 @@ def v8_loss_adapter(loss_cfg: DetectionLossConfig):
         total, items = v8_detection_loss(
             feats, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"], loss_cfg)
         return total, {"box_loss": items[0], "cls_loss": items[1], "dfl_loss": items[2]}
+
+    return fn
+
+
+def yolox_loss_adapter(loss_cfg: YOLOXLossConfig):
+    """feats + batch -> (total, metrics dict) for the YOLOX (SimOTA) loss."""
+
+    def fn(feats, batch):
+        return yolox_loss(feats, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"],
+                          loss_cfg)
 
     return fn
 
@@ -100,9 +113,10 @@ class TrainStep:
     0-d device tensors (no host sync).
 
     ``on_phase``, when set, is called with each phase's name as the phase
-    ends: ``"h2d"``, then ``"forward"``, ``"loss"`` and ``"backward"`` for
-    each microbatch, then ``"clip_adamw_ema"``. A profiler records a CUDA
-    event there to time the step's own phases."""
+    ends: ``"h2d"``, ``"augment"`` when the call augments, then
+    ``"forward"``, ``"loss"`` and ``"backward"`` for each microbatch, then
+    ``"clip_adamw_ema"``. A profiler records a CUDA event there to time the
+    step's own phases."""
 
     on_phase: Optional[Callable[[str], None]] = None
 
@@ -175,10 +189,16 @@ class TrainStep:
             torch._foreach_mul_([p.grad for p in params], 1.0 / k)
         return loss * (1.0 / k), {key: v * (1.0 / k) for key, v in metrics.items()}
 
-    def __call__(self, state, batch: Mapping[str, Any]):
+    def __call__(self, state, batch: Mapping[str, Any],
+                 augment: Optional[Callable[[Dict[str, torch.Tensor]], Dict]] = None):
+        """One step. ``augment``, when given, maps the device batch before
+        the forward (``data/augment.py::augment_batch``)."""
         device = next(self.model.parameters()).device
         b = batch_to_device(batch, device)
         self._mark("h2d")
+        if augment is not None:
+            b = augment(b)
+            self._mark("augment")
         with precision_scope(self.precision):
             loss, metrics = self.grads(b)
             state.apply_gradients([p.grad for p in self.model.parameters()])
@@ -208,17 +228,20 @@ class EvalStep:
     EMA parameters and the live BN buffers (``train/state.py::ema_state_dict``);
     otherwise on the model as it stands.
 
-    ``metrics`` holds 0-d tensors: loss, box_loss, cls_loss, dfl_loss and
-    prefilter_saturated (the share of real images, ``sample_valid``, whose
-    above-conf candidates exceed ``pre_nms_topk``). Detections are
+    ``metrics`` holds 0-d tensors: loss, the loss function's items (YOLO11:
+    box_loss, cls_loss, dfl_loss; YOLOX: iou_loss, obj_loss, cls_loss,
+    l1_loss, num_fg) and prefilter_saturated (the share of real images,
+    ``sample_valid``, whose above-conf candidates exceed
+    ``pre_nms_topk``). Detections are
     (B, max_det, ...) rows in normalised xyxy, score-descending, with a
     validity mask. Marks are (B, T, max_det) bool."""
 
     def __init__(self, model, loss_fn, conf_threshold, iou_threshold, max_det, pre_nms_topk,
-                 match_thresholds, per_class, matmul_precision, use_ema=False):
+                 match_thresholds, per_class, matmul_precision, use_ema=False, decode_fn=None):
         self.model = model
         self.use_ema = use_ema
         self.loss_fn = loss_fn
+        self.decode_fn = decode_fn
         self.conf_threshold = conf_threshold
         self.iou_threshold = iou_threshold
         self.max_det = max_det
@@ -250,14 +273,26 @@ class EvalStep:
         with precision_scope(self.precision), torch.inference_mode():
             return self._outputs(feats, batch)
 
+    def detections(self, feats, img_size: int):
+        """(boxes, scores, labels, valid, above-conf count per image) of the
+        maps; kernel #1 sweeps at B > 1 (kernel #2 at B = 1 on the YOLOX
+        path)."""
+        if self.decode_fn is None:
+            m = self.model
+            return postprocess_from_feats(
+                feats, nc=m.nc, strides=tuple(float(s) for s in m.strides), reg_max=m.reg_max,
+                img_size=img_size, conf_threshold=self.conf_threshold,
+                iou_threshold=self.iou_threshold, max_det=self.max_det,
+                pre_nms_topk=self.pre_nms_topk, with_cand_count=True, nms_impl="kernel")
+        decoded = self.decode_fn(feats)
+        dets = postprocess(decoded, img_size=img_size, conf_threshold=self.conf_threshold,
+                           iou_threshold=self.iou_threshold, max_det=self.max_det,
+                           pre_nms_topk=self.pre_nms_topk, nms_impl="kernel")
+        return (*dets, (decoded[..., 4:].amax(dim=-1) > self.conf_threshold).sum(dim=-1))
+
     def _outputs(self, feats, batch):
         total, items = self.loss_fn(feats, batch)
-        m = self.model
-        boxes, scores, labels, valid, cand = postprocess_from_feats(
-            feats, nc=m.nc, strides=tuple(float(s) for s in m.strides), reg_max=m.reg_max,
-            img_size=batch["img"].shape[1], conf_threshold=self.conf_threshold,
-            iou_threshold=self.iou_threshold, max_det=self.max_det,
-            pre_nms_topk=self.pre_nms_topk, with_cand_count=True, nms_impl="kernel")
+        boxes, scores, labels, valid, cand = self.detections(feats, batch["img"].shape[1])
         # share of REAL images whose candidates exceed the cap: the loader
         # wrap-pads the final short batch with duplicates, which must not count
         sat = (cand > self.pre_nms_topk).to(torch.float32)
@@ -292,7 +327,7 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
                    max_det: int = 300, pre_nms_topk: int = 2048, use_ema: bool = False,
                    loss_fn=None, decode_fn=None, match_thresholds=None,
                    per_class: bool = False, matmul_precision: str | None = "highest") -> EvalStep:
-    """The eval step of a YOLO11 ``model`` on the model's device.
+    """The eval step of ``model`` on the model's device.
 
     The reference NMSes every above-conf anchor; fixed shapes force a
     ``pre_nms_topk`` cap, 2048 so that it does not bind at conf 0.25 on
@@ -302,13 +337,15 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
     accuracy (see :func:`precision_scope`). ``use_ema``: evaluate the EMA
     of the state passed to each call.
 
-    ``loss_fn`` and ``decode_fn`` serve YOLOX (ROADMAP E). Passing them
-    raises."""
-    if loss_fn is not None or decode_fn is not None:
-        raise NotImplementedError("loss_fn / decode_fn: the YOLOX family is not ported yet "
-                                  "(ROADMAP E)")
-    if loss_cfg is None:
-        loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides,
-                                       reg_max=model.reg_max)
-    return EvalStep(model, v8_loss_adapter(loss_cfg), conf_threshold, iou_threshold, max_det,
-                    pre_nms_topk, match_thresholds, per_class, matmul_precision, use_ema)
+    ``loss_fn`` (feats + batch -> (total, items)) replaces the v8 loss of
+    ``loss_cfg``; ``decode_fn`` (maps -> (B, A, 4+nc) xywh pixels and
+    scores) replaces the fused select-then-decode with itself and the
+    common ``postprocess``. YOLOX passes both (``yolox_loss_adapter``,
+    ``yolox_eval_decode``)."""
+    if loss_fn is None:
+        if loss_cfg is None:
+            loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides,
+                                           reg_max=model.reg_max)
+        loss_fn = v8_loss_adapter(loss_cfg)
+    return EvalStep(model, loss_fn, conf_threshold, iou_threshold, max_det, pre_nms_topk,
+                    match_thresholds, per_class, matmul_precision, use_ema, decode_fn)

@@ -2,13 +2,17 @@
 ``train/trainer.py``).
 
 The train step keeps its metrics on the device; an epoch's are stacked and
-fetched once at its end. Validation runs the eval step with device TP marks
-and NMS kernel #1 (``train/steps.py::EvalStep``), deferring its fetches in
-chunks of ``val_fetch_chunk`` batches; only the AP accumulation runs on the
-host.
+fetched once at its end. With ``augment`` set, each batch is augmented on
+the device after H2D and before the forward (``data/augment.py``), from a
+generator seeded by (seed + 1, epoch, batch index), except in the final
+``final_epochs`` (the YOLOX no-aug end phase, which also turns the YOLOX L1
+loss on). Validation runs the eval step with device TP marks and NMS kernel
+#1 (``train/steps.py::EvalStep``), deferring its fetches in chunks of
+``val_fetch_chunk`` batches; only the AP accumulation runs on the host.
 
-Not ported here, each raising with its ROADMAP item: a ``mesh`` and
-``bn_mode="local"`` (F), ``model_kind="yolox"`` (E), ``augment`` (C7b).
+``model_kind``: ``"yolo11"`` (v8 loss, fused DFL decode) or ``"yolox"``
+(SimOTA loss, ``yolox_eval_decode``). Not ported here, raising with its
+ROADMAP item: a ``mesh`` and ``bn_mode="local"`` (F).
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from yolo_scratch_tpu_torch.data.augment import augment_batch, batch_generator
+from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
+from yolo_scratch_tpu_torch.models.yolox import yolox_eval_decode
 from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
 from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
 from yolo_scratch_tpu_torch.train.state import create_train_state
@@ -29,6 +36,7 @@ from yolo_scratch_tpu_torch.train.steps import (
     build_train_step_custom,
     make_eval_step,
     v8_loss_adapter,
+    yolox_loss_adapter,
 )
 from yolo_scratch_tpu_torch.utils.metrics import (
     detections_to_lists,
@@ -63,7 +71,7 @@ class TrainerConfig:
     use_ema: bool = False
     eval_with_ema: bool = False
     log_interval: int = 50
-    augment: Optional[Any] = None  # ROADMAP C7b: raises when set
+    augment: Optional[Any] = None  # data.augment.AugmentConfig; applied on the device
     mixed_precision: bool = False  # bf16 autocast fwd/bwd, f32 master weights + loss
     remat: bool = False  # activation recompute (torch.utils.checkpoint) in backward
     # k>1: k microbatches, mean gradient applied once (steps.TrainStep.grads)
@@ -73,7 +81,8 @@ class TrainerConfig:
     # None leaves the backend flags alone
     train_matmul_precision: Optional[str] = "high"
     bn_mode: str = "sync"  # 'local' (DDP per-replica BN): ROADMAP F
-    # final no-aug phase: the last N epochs train with augmentation off
+    # final no-aug phase (the YOLOX recipe): the last N epochs train with
+    # augmentation off, and for YOLOX with the L1 loss on. 0 disables it.
     final_epochs: int = 0
     # TP/FP matching on the device inside the eval step (ops/matching.py);
     # False takes the numpy greedy matcher (utils/metrics.py)
@@ -90,25 +99,33 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model, train_loader, val_loader=None,
-                 config: TrainerConfig = TrainerConfig(), mesh=None,
+                 config: TrainerConfig = TrainerConfig(), mesh=None, seed: int = 0,
                  model_kind: str = "yolo11"):
         """Trains ``model`` in place, on the model's device. The model comes
         initialised (the CLI seeds it) and the loaders carry their own
-        seeds, so there is no ``seed`` argument."""
+        seeds; ``seed`` + 1 seeds the augmentation, as in the JAX package."""
         if mesh is not None or config.bn_mode == "local":
             raise NotImplementedError("mesh / bn_mode='local': multi-GPU training is not "
                                       "ported (ROADMAP F)")
-        if model_kind != "yolo11":
-            raise NotImplementedError(f"model_kind={model_kind!r}: the YOLOX family is not "
-                                      "ported (ROADMAP E)")
-        if config.augment is not None:
-            raise NotImplementedError("augment: device augmentation is not ported "
-                                      "(ROADMAP C7b)")
+        if model_kind not in ("yolo11", "yolox"):
+            raise ValueError(f"model_kind={model_kind!r}: 'yolo11' or 'yolox'")
         self.model = model
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = config
+        self.aug_seed = seed + 1
         self.loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides)
+        loss_fn = v8_loss_adapter(self.loss_cfg)
+        self._loss_fn_final = None  # the final phase's loss (YOLOX: use_l1=True)
+        decode_fn = eval_loss_fn = None
+        if model_kind == "yolox":
+            strides = tuple(model.strides)
+            loss_fn = eval_loss_fn = yolox_loss_adapter(YOLOXLossConfig(nc=model.nc,
+                                                                        strides=strides))
+            if config.final_epochs > 0:
+                self._loss_fn_final = yolox_loss_adapter(
+                    YOLOXLossConfig(nc=model.nc, strides=strides, use_l1=True))
+            decode_fn = lambda feats: yolox_eval_decode(feats, model.nc, strides)  # noqa: E731
 
         steps_per_epoch = max(len(train_loader), 1)
         self.schedule = cosine_epoch_schedule(config.lr, config.epochs, steps_per_epoch,
@@ -122,11 +139,9 @@ class Trainer:
         if config.pretrained:
             self._apply_pretrained(config.pretrained)
         self.state = create_train_state(model, tx, use_ema=config.use_ema)
-        self._train_step = build_train_step_custom(
-            model, v8_loss_adapter(self.loss_cfg),
-            compute_dtype=torch.bfloat16 if config.mixed_precision else None,
-            remat=config.remat, grad_accum=config.grad_accum,
-            matmul_precision=config.train_matmul_precision)
+        self._train_step = self._build_step(loss_fn)
+        # built at the phase change, so a run that never reaches it pays nothing
+        self._train_step_final = None
         if config.device_matching:
             from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS
 
@@ -137,6 +152,7 @@ class Trainer:
             model, self.loss_cfg, conf_threshold=config.val_conf,
             iou_threshold=config.nms_iou, max_det=config.max_det,
             pre_nms_topk=config.pre_nms_topk, use_ema=config.eval_with_ema,
+            loss_fn=eval_loss_fn, decode_fn=decode_fn,
             match_thresholds=self._match_thresholds,
             matmul_precision=config.val_matmul_precision)
 
@@ -153,6 +169,13 @@ class Trainer:
         # early-stopping state; persisted in the meta json, restored by resume()
         self.since_improve = 0
         self.patience_best = -float("inf")
+
+    def _build_step(self, loss_fn):
+        cfg = self.cfg
+        return build_train_step_custom(
+            self.model, loss_fn, compute_dtype=torch.bfloat16 if cfg.mixed_precision else None,
+            remat=cfg.remat, grad_accum=cfg.grad_accum,
+            matmul_precision=cfg.train_matmul_precision)
 
     def _apply_pretrained(self, path: str) -> None:
         """Overlay pretrained weights onto the model (the reference's
@@ -197,16 +220,31 @@ class Trainer:
         return self.start_epoch > 0
 
     def _in_final_phase(self, epoch: int) -> bool:
-        """The last ``final_epochs`` epochs (augmentation off)."""
+        """The last ``final_epochs`` epochs: augmentation off (and the L1
+        loss on for YOLOX), the YOLOX paper's no-aug end phase."""
         return self.cfg.final_epochs > 0 and epoch >= self.cfg.epochs - self.cfg.final_epochs
+
+    def augmenter(self, epoch: int, batch_index: int):
+        """The device-batch augmentation of one train batch, or None (no
+        ``augment`` config, or the final phase)."""
+        cfg = self.cfg.augment
+        if cfg is None or self._in_final_phase(epoch):
+            return None
+        return lambda b: augment_batch(
+            b, batch_generator(self.aug_seed, epoch, batch_index, b["img"].device), cfg)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         t0 = time.perf_counter()
         images = 0
+        step_fn = self._train_step
+        if self._in_final_phase(epoch) and self._loss_fn_final is not None:
+            if self._train_step_final is None:
+                self._train_step_final = self._build_step(self._loss_fn_final)
+            step_fn = self._train_step_final
         collected = []  # device tensors; fetched once at epoch end (no per-step sync)
-        for batch in self.train_loader:
+        for bi, batch in enumerate(self.train_loader):
             images += batch["img"].shape[0]
-            self.state, metrics = self._train_step(self.state, batch)
+            self.state, metrics = step_fn(self.state, batch, augment=self.augmenter(epoch, bi))
             collected.append(metrics)
         out: Dict[str, float] = {}
         if collected:
@@ -311,14 +349,17 @@ class Trainer:
         for epoch in range(self.start_epoch, self.cfg.epochs):
             lr = float(self.schedule(epoch * max(len(self.train_loader), 1)))
             if self._in_final_phase(epoch) and not self._in_final_phase(epoch - 1):
-                print(f"--> final phase: augmentation off (last {self.cfg.final_epochs} "
-                      "epochs)")
+                extra = " + L1 loss on" if self._loss_fn_final is not None else ""
+                print(f"--> final phase: augmentation off{extra} (last "
+                      f"{self.cfg.final_epochs} epochs)")
             train_metrics = self.train_epoch(epoch)
             val_metrics = self.validate()
 
+            # v8: box/cls/dfl; YOLOX: iou/obj/cls/l1
             parts = " ".join(f"{label} {train_metrics[key]:.4f}"
-                             for label, key in (("box", "box_loss"), ("cls", "cls_loss"),
-                                                ("dfl", "dfl_loss"))
+                             for label, key in (("box", "box_loss"), ("iou", "iou_loss"),
+                                                ("obj", "obj_loss"), ("cls", "cls_loss"),
+                                                ("dfl", "dfl_loss"), ("l1", "l1_loss"))
                              if key in train_metrics)
             print(f"Epoch {epoch + 1}/{self.cfg.epochs} | lr {lr:.6f} | "
                   f"train loss {train_metrics.get('loss', float('nan')):.4f} ({parts}) | "

@@ -7,6 +7,10 @@
 * ``params .../bn/{scale,bias}`` -> ``bn.{weight,bias}``;
 * ``batch_stats .../bn/{mean,var}`` -> ``bn.running_{mean,var}`` (plus a
   zero ``num_batches_tracked``, which the JAX tree does not carry).
+
+A YOLOX tree (top-level ``backbone``) keeps its tokens: the port's YOLOX
+modules carry the flax names (``backbone/dark2_csp/m_0_cv1`` ->
+``backbone.dark2_csp.m_0_cv1``).
 """
 
 from __future__ import annotations
@@ -39,9 +43,10 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     """``{"params", "batch_stats"}`` tree of arrays -> port ``state_dict``,
     its floating tensors in ``dtype``."""
     out: Dict[str, torch.Tensor] = {}
+    token = (lambda t: t) if "backbone" in variables["params"] else _split_numeric
     for path, leaf, arr in _leaves(variables["params"]):
         t = torch.from_numpy(np.array(arr, dtype=dtype))
-        prefix = ".".join(_split_numeric(p) for p in path)
+        prefix = ".".join(token(p) for p in path)
         if path[-1] == "bn":
             out[f"{prefix}.{_BN_PARAM[leaf]}"] = t
         elif leaf == "kernel":
@@ -51,7 +56,7 @@ def state_dict_from_jax(variables: Mapping[str, Any],
         else:
             raise ValueError(f"unhandled param {'/'.join(path + (leaf,))}")
     for path, leaf, arr in _leaves(variables.get("batch_stats", {})):
-        prefix = ".".join(_split_numeric(p) for p in path)
+        prefix = ".".join(token(p) for p in path)
         out[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr, dtype=dtype))
         out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out

@@ -15,9 +15,11 @@ best.pt [--per-class] [--coco-summary]``. Runs on ``cuda`` unless
 the port's trainer wrote (``train/checkpoints.py``); ``--ema`` evaluates its
 EMA parameters with the live BN statistics.
 
-Not ported yet: ``--model yolox`` (ROADMAP E) and the crater and COCO
-datasets (ROADMAP C7b). Each raises. The JAX package's orbax checkpoint
-directories are not read (ROADMAP C5).
+``--model yolox --scale s`` evaluates a YOLOX (SimOTA loss for the val
+loss, ``yolox_eval_decode`` into the common postprocess), as the JAX CLI
+does; ``--data`` takes the synthetic set, a crater tree or a COCO directory
+(``train/cli.py::make_datasets``). The JAX package's orbax checkpoint
+directories are not read (ROADMAP C5b).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def main(argv=None):
     p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
     p.add_argument("--scale", type=str, default="n")
     p.add_argument("--model", type=str, default="yolo11", choices=["yolo11", "yolox"],
-                   help="model family (yolox: not ported, ROADMAP E)")
+                   help="model family (yolox: --scale n|tiny|s|m|l|x, n = nano)")
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint dir written by this package's trainer")
     p.add_argument("--which", type=str, default="best", choices=["best", "last"])
@@ -67,9 +69,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     args = p.parse_args(argv)
 
-    if args.model == "yolox":
-        raise NotImplementedError("--model yolox: the YOLOX family is not ported (ROADMAP E)")
-
     from yolo_scratch_tpu_torch.data.loader import Loader
     from yolo_scratch_tpu_torch.models.builder import build_yolo11
     from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS
@@ -90,7 +89,22 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     ds, ch, nc = make_datasets(args)
-    model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale)
+    loss_fn = decode_fn = None
+    if args.model == "yolox":
+        # the Trainer's YOLOX wiring: SimOTA val loss, obj*cls decode
+        from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
+        from yolo_scratch_tpu_torch.models.yolox import (
+            build_yolox,
+            scale_name,
+            yolox_eval_decode,
+        )
+        from yolo_scratch_tpu_torch.train.steps import yolox_loss_adapter
+
+        model = build_yolox(scale_name(args.scale), nc=nc, ch=ch)
+        loss_fn = yolox_loss_adapter(YOLOXLossConfig(nc=nc, strides=model.strides))
+        decode_fn = lambda feats: yolox_eval_decode(feats, nc, model.strides)  # noqa: E731
+    else:
+        model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale)
     if args.torch_ckpt:
         load_reference_checkpoint(model, args.torch_ckpt)
     if args.ckpt:
@@ -106,7 +120,8 @@ def main(argv=None):
     device_match = not args.host_match
     need_lists = args.cda or args.host_match
     step = make_eval_step(
-        model, conf_threshold=args.conf, iou_threshold=args.iou,
+        model, conf_threshold=args.conf, iou_threshold=args.iou, loss_fn=loss_fn,
+        decode_fn=decode_fn,
         match_thresholds=DEFAULT_THRESHOLDS if device_match else None,
         per_class=(args.per_class or args.coco_summary) and device_match,
     )
