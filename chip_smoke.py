@@ -63,7 +63,25 @@ Phases (any failure raises and exits non-zero):
    and at conf 0 (every box valid). (c) the train step's phases (H2D,
    forward, loss, backward, clip+AdamW+EMA; medians of 5 between CUDA
    events), train img/s over back-to-back steps at B=16, and the device
-   busy share (``torch.profiler``).
+   busy share (``torch.profiler``);
+8. YOLOX-s at 640: device augmentation card vs CPU, the Predictor, val,
+   one train step card vs CPU, ``train.cli.main`` with the YOLOX recipe and
+   one epoch on a crater tree written with cv2;
+9. deploy, on phase 6's crater YOLO11n: (a) ``int8_conv2d`` at each of
+   YOLO11n's 34 distinct conv shapes at B=32, 640, bit-exact against its
+   float64 plain version on the card and against the CPU's int32, its
+   device ms beside cuDNN's bf16 conv; (b) the int8 Predictor (calibrated
+   on 2 batches) at B=32: detections equal the plain sweep's, maps card vs
+   CPU on the same quant buffers within ``INT8_CARD_CPU_TOL``, the share of
+   the bf16 Predictor's detections it matches, img/s and busy share; (c)
+   the bf16 and int8 Predictors exported, saved, loaded and run at B=32:
+   output equal to the live Predictor's, kernel #1 launched through the
+   ``yst`` op; (d) ``serve.main`` on 127.0.0.1:0 at ``--batch 8``, 64 PNG
+   requests of varied sizes from 16 clients, every response equal to
+   ``predict_paths``, a poisoned request failing alone, live and over a
+   bf16 artifact; (e) ``infer.main --int8-calib 1`` on those PNGs, host
+   prep through the cv2 tier where the native library does not build.
+   Kernel #1's counter is zeroed before each path and read after.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -78,11 +96,13 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from yolo_scratch_tpu_torch import probe_fused_bottleneck as P
 from yolo_scratch_tpu_torch.infer import (
@@ -128,7 +148,13 @@ from yolo_scratch_tpu_torch.train.steps import (
     yolox_loss_adapter,
 )
 from yolo_scratch_tpu_torch.utils.build import BUILD_DIR
-from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, device_profile, time_ms
+from yolo_scratch_tpu_torch.utils.cuda_timing import (
+    call_ms,
+    device_ms,
+    device_profile,
+    ranges_ms,
+    time_ms,
+)
 
 # H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): HBM bytes/s and
 # f32 (non-tensor-core) FLOP/s. The NMS sweep is f32 compare/divide work.
@@ -1194,6 +1220,339 @@ def yolox_train_phase(dev, ident: str) -> dict:
     return dict(launches=launches, augment_ms=phases.get("augment"))
 
 
+# the deploy phase (9): int8, torch.export artifacts, the serving daemon and
+# the infer CLI, on phase 6's crater YOLO11n (every anchor above 0.25)
+SERVE_BATCH, SERVE_REQUESTS, SERVE_CLIENTS = 8, 64, 16
+# the int8 Predictor, card against CPU on the same quant buffers (f32, TF32
+# off): every int8 conv is exact on both; the float ops between them differ
+# by ulps, which flip a few inputs to the neighbouring quantisation step.
+# A flip moves a map by one step's share, far below the int8-vs-float error
+# the JAX tests bound at 0.05 of max|ref|; that bound holds here too.
+INT8_CARD_CPU_TOL = 0.05
+
+
+def conv_shapes(model, x, dev) -> list:
+    """(block, its input shape) of each distinct ``ConvBNAct`` conv shape in
+    one forward of ``model`` (quantized, on ``dev``) on ``x``."""
+    from yolo_scratch_tpu_torch.nn.quant import conv_blocks
+
+    seen = {}
+
+    def hook(mod, inp, out):
+        c = mod.conv
+        key = (tuple(inp[0].shape), c.out_channels, c.kernel_size[0], c.stride[0],
+               c.padding[0], c.dilation[0], c.groups)
+        seen.setdefault(key, mod)
+
+    hooks = [m.register_forward_hook(hook) for _, m in conv_blocks(model)]
+    try:
+        with torch.inference_mode():
+            model(torch.as_tensor(x, dtype=torch.float32, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(mod, key[0]) for key, mod in seen.items()]
+
+
+def int8_conv_phase(model_q, x, dev, ident: str) -> None:
+    """9(a): ``int8_conv2d`` at every distinct YOLO11n conv shape, B=32, 640:
+    the card's int32 output bit-exact against the float64 plain version on
+    the card and against the CPU's int32 output; its device ms beside
+    cuDNN's bf16 conv on the same shape (numbers, not a claim)."""
+    from yolo_scratch_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
+
+    gen = torch.Generator().manual_seed(9)
+    fns, rows = {}, []
+    for i, (mod, shape) in enumerate(conv_shapes(model_q, x, dev)):
+        c = mod.conv
+        args = (c.stride[0], c.padding[0], c.dilation[0], c.groups)
+        xq = torch.randint(-127, 128, shape, dtype=torch.int8, generator=gen)
+        xq_d = xq.to(dev).contiguous(memory_format=torch.channels_last)
+        got = int8_conv2d(xq_d, mod.w_q, *args)
+        plain = int8_conv2d_plain(xq_d, mod.w_q, *args)
+        cpu = int8_conv2d(xq, mod.w_q.cpu(), *args)
+        if not (torch.equal(got, plain) and torch.equal(got.cpu(), cpu)):
+            raise AssertionError(f"int8_conv2d {shape} -> {c.out_channels}, k={c.kernel_size[0]} "
+                                 f"args {args}: card differs from the float64 plain version or "
+                                 "from the CPU")
+        xb = xq_d.to(torch.bfloat16)
+        wb = mod.w_q.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        name = f"{shape[1]}x{shape[2]}->{c.out_channels} k{c.kernel_size[0]}s{args[0]}g{args[3]}"
+        fns[f"int8 {name}"] = lambda xq_d=xq_d, w=mod.w_q, a=args: int8_conv2d(xq_d, w, *a)
+        fns[f"cudnn {name}"] = lambda xb=xb, wb=wb, a=args: F.conv2d(xb, wb, None, *a)
+        rows.append(name)
+    ms = ranges_ms(fns, reps=3)
+    log(f"int8 conv (a): {len(rows)} distinct YOLO11n conv shapes at B={x.shape[0]}, {x.shape[1]}: "
+        "card int32 == float64 plain == CPU int32, bit for bit, on every one")
+    log("int8 conv device ms (ops/int8_conv.py, im2col + cuBLASLt s8 GEMM / depthwise sum) "
+        "vs cuDNN bf16 conv, same shape, B=32: " + "; ".join(
+            f"{r} {ms['int8 ' + r]:.4f} / {ms['cudnn ' + r]:.4f}" for r in rows)
+        + f" on {ident}")
+    tot_i8 = sum(ms["int8 " + r] for r in rows)
+    tot_bf = sum(ms["cudnn " + r] for r in rows)
+    log(f"int8 conv, the {len(rows)} shapes summed: {tot_i8:.3f} ms int8 vs {tot_bf:.3f} ms "
+        f"cuDNN bf16 on {ident}")
+
+
+def detections_matched(a: torch.Tensor, b: torch.Tensor, iou: float = 0.5) -> float:
+    """Share of ``a``'s valid detections (packed (B, max_det, 7)) that one
+    of ``b``'s, of the same label, overlaps at IoU >= ``iou``."""
+    from yolo_scratch_tpu_torch.ops.boxes import pairwise_iou
+
+    hit = total = 0
+    for ra, rb in zip(a.float().cpu(), b.float().cpu()):
+        va, vb = ra[ra[:, 6] > 0.5], rb[rb[:, 6] > 0.5]
+        total += len(va)
+        if len(va) and len(vb):
+            m = (pairwise_iou(va[:, :4], vb[:, :4]) >= iou) & (va[:, None, 5] == vb[None, :, 5])
+            hit += int(m.any(1).sum())
+    return hit / max(total, 1)
+
+
+def int8_predictor_phase(model, dev, ident: str):
+    """9(b): the int8 Predictor at B=32, 640, calibrated on 2 batches."""
+    from yolo_scratch_tpu_torch.nn.quant import count_quantized, quantize_for_deploy
+
+    B, S = BATCH, IMGSZ
+    xs = [np.random.RandomState(900 + i).randint(0, 256, (B, S, S, 1), dtype=np.uint8)
+          for i in range(3)]
+    t0 = time.perf_counter()
+    model_q = quantize_for_deploy(model.to(dev), [xs[0] / 255.0, xs[1] / 255.0])
+    torch.cuda.synchronize()
+    log(f"int8: quantized {count_quantized(model_q)} conv blocks, calibrated on 2 batches "
+        f"of {B} in {time.perf_counter() - t0:.1f} s")
+    int8_conv_phase(model_q, xs[2] / 255.0, dev, ident)
+    pred = Predictor(model_q, PredictorConfig(img_size=S, batch_size=B), device=dev)
+    K.reset_launches()
+    for x in xs:
+        check_packed(pred.predict_batch(x), B, 300)
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    log(f"int8 Predictor main path (predict_batch, 3 batches of {B}): launches {dict(K.launches)}")
+    if launches != len(xs):
+        raise AssertionError(f"the int8 Predictor launched kernel #1 {launches} times")
+    with torch.inference_mode():
+        feats = pred.forward_feats(xs[2])
+        got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+    if not torch.equal(got, ref):
+        raise AssertionError("int8 Predictor detections differ from the plain sweep's")
+    log(f"int8 Predictor: detections equal the plain sweep's on the same candidates "
+        f"({int(got[..., 6].sum())} kept over {B} images)")
+
+    # card against CPU on the same quant buffers, f32 (TF32 off), two images
+    f32 = PredictorConfig(img_size=S, batch_size=2, bf16=False)
+    with precision_scope("highest"):
+        card = Predictor(model_q, f32, device=dev)
+        maps_card, det_card = card.forward_feats(xs[2][:2]), card.predict_batch(xs[2][:2])
+    cpu = Predictor(model_q.cpu(), f32, device="cpu")
+    maps_cpu, det_cpu = cpu.forward_feats(xs[2][:2]), cpu.predict_batch(xs[2][:2])
+    errs = [float((g.cpu() - r).abs().max() / r.abs().max()) for g, r in zip(maps_card, maps_cpu)]
+    share = detections_matched(det_cpu, det_card)
+    log(f"int8 Predictor, card vs CPU on the same quant buffers (f32, TF32 off, 2 images): maps "
+        f"within {max(errs):.3g} of max|ref| (limit {INT8_CARD_CPU_TOL}); {share:.4f} of the "
+        f"CPU's detections matched at IoU >= 0.5")
+    if max(errs) > INT8_CARD_CPU_TOL:
+        raise AssertionError(f"int8 maps card vs CPU: {errs}")
+
+    bf16 = Predictor(model, PredictorConfig(img_size=S, batch_size=B), device=dev)
+    agree = detections_matched(bf16.predict_batch(xs[2]), got)
+    log(f"int8 vs bf16 Predictor on one batch of {B}: {agree:.4f} of the bf16 detections "
+        f"matched by an int8 detection of the same label at IoU >= 0.5")
+    pred.predict_batch(xs[0])
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for i in range(n):
+        pred.predict_batch(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    prof = device_profile(lambda: pred.predict_batch(xs[0]), reps=3)
+    log(f"int8 Predictor: {B / wall * 1e3:.1f} img/s at B={B}, {S}x{S}, {wall:.2f} ms/batch "
+        f"wall, {prof['ms']:.2f} ms device in {prof['ops']} ops (busy {prof['ms'] / wall:.3f}) "
+        f"on {ident}")
+    log("int8 Predictor, top device activities (ms a batch, count): " + "; ".join(
+        f"{name} {ms:.2f} x{c}" for name, ms, c in prof["top"]))
+    return pred, bf16, xs, launches
+
+
+def export_phase(preds: dict, x, tmp) -> int:
+    """9(c): each Predictor exported at B=32, saved, loaded and run: its
+    packed output equals the live Predictor's, and the artifact's run
+    launches kernel #1 (the yst op)."""
+    from yolo_scratch_tpu_torch import export as E
+
+    launches = 0
+    for name, pred in preds.items():
+        path = str(tmp / f"{name}.pt2")
+        t0 = time.perf_counter()
+        ep = E.export_predictor(pred)
+        t1 = time.perf_counter()
+        nbytes = E.save_artifact(ep, path)
+        t2 = time.perf_counter()
+        art = E.ArtifactPredictor(E.load_artifact(path))
+        t3 = time.perf_counter()
+        live = pred.predict_batch(x)
+        K.reset_launches()
+        out = art.predict_batch(x)
+        torch.cuda.synchronize()
+        n = K.launches["nms_sweep_batched"]
+        launches += n
+        if art.device.type != pred.device.type or n != 1 or not torch.equal(out, live):
+            raise AssertionError(f"{name} artifact: device {art.device}, kernel #1 launches {n}, "
+                                 f"equal to the live Predictor: {torch.equal(out, live)}")
+        log(f"export (c) {name}: {nbytes / 1e6:.2f} MB, export {t1 - t0:.1f} s, save "
+            f"{t2 - t1:.1f} s, load {t3 - t2:.1f} s; the artifact's packed output equals the "
+            f"live Predictor's at B={x.shape[0]}, kernel #1 launched {n} time(s) on its run")
+    return launches
+
+
+def write_request_images(root, n: int, seed: int = 0) -> list:
+    """``n`` grayscale PNGs of varied sizes (smooth noise, so they compress
+    fast), written with cv2."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        h, w = int(rng.randint(240, 900)), int(rng.randint(240, 900))
+        low = (rng.rand(h // 16 + 1, w // 16 + 1) * 255).astype(np.uint8)
+        p = str(root / f"req{i:03d}.png")
+        cv2.imwrite(p, cv2.resize(low, (w, h), interpolation=cv2.INTER_LINEAR))
+        paths.append(p)
+    return paths
+
+
+def drive_daemon(argv: list, ref_pred, paths: list, ident: str, label: str) -> int:
+    """``serve.main(argv)`` on 127.0.0.1:0; ``SERVE_REQUESTS`` POSTs from
+    ``SERVE_CLIENTS`` threads, each response equal to ``ref_pred``'s
+    ``predict_paths`` on the same file; one poisoned request fails alone.
+    Returns kernel #1's launches over the daemon's run."""
+    import urllib.error
+    import urllib.request
+
+    from yolo_scratch_tpu_torch import serve
+
+    ref = {r["path"]: {k: r[k] for k in ("boxes", "scores", "labels")}
+           for r in ref_pred.predict_paths(paths)}
+    ready = []
+    K.reset_launches()
+    th = threading.Thread(target=serve.main, args=(argv,), kwargs={"ready": ready.append},
+                          daemon=True)
+    th.start()
+    for _ in range(1200):
+        if ready or not th.is_alive():
+            break
+        time.sleep(0.1)
+    if not ready:
+        raise AssertionError(f"serve.main {argv} did not start")
+    httpd = ready[0]
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = {p: open(p, "rb").read() for p in paths}
+    got, codes = {}, []
+
+    def post(body):
+        req = urllib.request.Request(f"{url}/v1/detect", data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, None
+
+    def client(k):
+        for p in paths[k::SERVE_CLIENTS]:
+            got[p] = post(bodies[p])
+        if k == 0:
+            codes.append(post(b"not an image")[0])
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        th.join(timeout=60)
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    bad = [p for p in paths if got.get(p) != (200, ref[p])]
+    if bad or codes != [500] or th.is_alive() or launches == 0:
+        code, first = got.get(bad[0], (None, None)) if bad else (None, None)
+        diff = (None if first is None or len(first["scores"]) != len(ref[bad[0]]["scores"])
+                else float(np.abs(np.subtract(first["scores"], ref[bad[0]]["scores"])).max()))
+        raise AssertionError(f"daemon {label}: {len(bad)} responses differ from predict_paths "
+                             f"({bad[:3]}; the first: code {code}, max |d score| {diff}), "
+                             f"poisoned request code {codes}, worker alive {th.is_alive()}, "
+                             f"kernel #1 launches {launches}")
+    (stats,) = health["stats"].values()
+    log(f"daemon (d) {label}: {len(paths)} requests from {SERVE_CLIENTS} clients in {wall:.2f} s "
+        f"({len(paths) / wall:.1f} req/s), every response equal to predict_paths, the poisoned "
+        f"request alone failed (500); kernel #1 launches {launches}; /healthz batches "
+        f"{stats['batches']}, batch_fill {stats.get('batch_fill')}, p50 "
+        f"{stats['latency_ms']['p50']} ms, p99 {stats['latency_ms']['p99']} ms on {ident}")
+    return launches
+
+
+def deploy_phase(dev, ident: str) -> dict:
+    """9: int8 (a, b), export (c), the daemon live and over an artifact (d),
+    the infer CLI through the cv2 tier (e), on phase 6's crater YOLO11n."""
+    from pathlib import Path
+
+    from yolo_scratch_tpu_torch import export as E
+    from yolo_scratch_tpu_torch import infer
+    from yolo_scratch_tpu_torch.data import native
+
+    t_phase = time.perf_counter()
+    model = eval_model()
+    pred_q, pred_bf16, xs, launches = int8_predictor_phase(model, dev, ident)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        tmp = Path(td)
+        launches += export_phase({"bf16": pred_bf16, "int8": pred_q}, xs[1], tmp)
+        del pred_q, pred_bf16
+        weights = str(tmp / "w.pt")
+        torch.save(model.state_dict(), weights)
+        (tmp / "req").mkdir()
+        paths = write_request_images(tmp / "req", SERVE_REQUESTS)
+        common = ["--imgsz", str(IMGSZ), "--batch", str(SERVE_BATCH), "--port", "0"]
+        live = Predictor(load_deploy_model(weights=weights, device=dev),
+                         PredictorConfig(img_size=IMGSZ, batch_size=SERVE_BATCH), device=dev)
+        art_path = str(tmp / "serve.pt2")
+        E.main(["--weights", weights, "--imgsz", str(IMGSZ), "--batch", str(SERVE_BATCH),
+                "--out", art_path])
+        art = E.ArtifactPredictor(E.load_artifact(art_path), host_prep=E.load_host_prep(art_path))
+        # cuDNN's benchmark keeps its plans per thread, so the daemon's worker
+        # and this thread could time their way to different bf16 plans (other
+        # roundings); by heuristics both take the same plan
+        torch.backends.cudnn.benchmark = False
+        try:
+            launches += drive_daemon(common + ["--weights", weights], live, paths, ident,
+                                     f"live bf16, B={SERVE_BATCH}")
+            launches += drive_daemon(common + ["--artifact", art_path], art, paths, ident,
+                                     f"bf16 artifact, B={SERVE_BATCH}")
+        finally:
+            torch.backends.cudnn.benchmark = True
+
+        K.reset_launches()
+        t0 = time.perf_counter()
+        results = infer.main(["--images", str(tmp / "req"), "--weights", weights,
+                              "--imgsz", str(IMGSZ), "--batch", str(BATCH), "--int8-calib", "1"])
+        torch.cuda.synchronize()
+        n = K.launches["nms_sweep_batched"]
+        if len(results) != SERVE_REQUESTS or n != -(-SERVE_REQUESTS // BATCH):
+            raise AssertionError(f"infer CLI: {len(results)} results, kernel #1 launches {n}")
+        launches += n
+        log(f"infer CLI (e) --int8-calib 1 on {SERVE_REQUESTS} PNGs (host prep: the "
+            f"{'native' if native.available() else 'cv2'} tier): "
+            f"{sum(len(r['scores']) for r in results)} detections, kernel #1 launches {n}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"deploy phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -1223,12 +1582,14 @@ def main() -> int:
     yp = yolox_predictor_phase(dev, ident)
     ye = yolox_eval_phase(dev, ident)
     yt = yolox_train_phase(dev, ident)
+    dp = deploy_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
-    # validation paths of both families; #2 on the B=1 postprocess of both
+    # validation paths of both families, and on phase 9's int8 Predictor,
+    # artifacts, daemons and infer CLI; #2 on the B=1 postprocess of both
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
-                                      + ye["launches"] + yt["launches"]),
+                                      + ye["launches"] + yt["launches"] + dp["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

@@ -162,3 +162,61 @@ def test_cli_serves_state_dict_and_reads_dims(tmp_path, png_dir):
     assert len(results) == len(data) == 3
     for row in data:
         assert row["labels"] and all(0 <= lab < 80 for lab in row["labels"])
+
+
+@pytest.fixture
+def cv2_tier(monkeypatch):
+    """Both packages' host prep on their cv2 tier, as where the native
+    library does not build (the card's machine)."""
+    from yolo_scratch_tpu.data import native as jax_native
+    from yolo_scratch_tpu_torch.data import native
+
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
+
+
+@pytest.mark.parametrize("letterbox", [True, False], ids=["letterbox", "stretch"])
+@pytest.mark.parametrize("ch", [1, 3], ids=["gray", "rgb"])
+def test_prepare_cv2_tier_matches_jax(cv2_tier, tmp_path, letterbox, ch):
+    """The port's cv2 tier against the JAX package's, exactly: float32 / 255
+    images (even with u8_transfer on), BGR -> RGB, 114 padding, round()ed
+    sizes, meta rows [w0, h0, r, px, py] with r = 0 for stretch; an
+    undecodable file raises IOError on both."""
+    import types
+
+    import cv2
+
+    rng = np.random.RandomState(ch)
+    paths = []
+    for i, (h, w) in enumerate([(80, 100), (96, 96), (131, 57), (40, 200)]):
+        p = str(tmp_path / f"c{i}.png")
+        cv2.imwrite(p, (rng.rand(h, w, 3) * 255).astype(np.uint8))
+        paths.append(p)
+    cfg = dict(img_size=IMG, letterbox=letterbox)
+    jax_self = types.SimpleNamespace(cfg=JaxConfig(**cfg), in_ch=ch)
+    port_self = types.SimpleNamespace(cfg=infer.PredictorConfig(**cfg), in_ch=ch)
+    ref_imgs, ref_meta = JaxPredictor._prepare(jax_self, paths)
+    imgs, meta = infer.Predictor._prepare(port_self, paths)
+    assert imgs.dtype == ref_imgs.dtype == np.float32 and imgs.shape == (4, IMG, IMG, ch)
+    np.testing.assert_array_equal(imgs, ref_imgs)
+    np.testing.assert_array_equal(meta, ref_meta)
+    assert (meta[:, 2] > 0).all() == letterbox and (meta[:, 2] == 0).all() == (not letterbox)
+    bad = tmp_path / "bad.png"
+    bad.write_bytes(b"not an image")
+    for fn, self_ in ((JaxPredictor._prepare, jax_self), (infer.Predictor._prepare, port_self)):
+        with pytest.raises(IOError):
+            fn(self_, [paths[0], str(bad)])
+
+
+def test_predict_paths_through_cv2_tier_matches_jax(predictors, png_dir, cv2_tier):
+    """predict_paths where the native library is missing: the port's and
+    the JAX package's detections agree (the Predictor tolerances above)."""
+    tp, jp = predictors
+    paths = sorted(str(p) for p in png_dir.glob("*.png"))
+    got = list(tp.predict_paths(paths))
+    ref = list(jp.predict_paths(paths))
+    assert [r["path"] for r in got] == paths
+    for g, r in zip(got, ref):
+        assert g["labels"] == r["labels"] and len(g["labels"]) > 0
+        np.testing.assert_allclose(g["scores"], r["scores"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(g["boxes"], r["boxes"], rtol=0, atol=1e-5 * IMG * 2)

@@ -14,6 +14,11 @@ card.
   equal the same maps through the f32 decode and the plain sweep, exactly.
   Device augmentation: the card against the CPU on the same draws, boxes,
   labels and masks exact, images within 1e-5 (``chip_smoke.py`` 8(a)).
+* The int8 conv route (``ops/int8_conv.py``, not a hand kernel): int32
+  exact against its float64 plain version and the CPU's route. The NMS
+  custom ops called directly, and a CUDA ``torch.export`` artifact (bf16
+  and int8), launch kernel #1 and equal the plain sweep / the live
+  Predictor exactly.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -387,3 +392,72 @@ def test_yolox_train_step_on_the_card_matches_cpu(cuda):
                                loss_fn=yolox_loss_adapter(YOLOXLossConfig(nc=5)),
                                keys=YOLOX_LOSS_KEYS)
     assert errs["loss"] <= 1e-4 and errs["grad"] <= 1e-3
+
+
+# (c1, c2, k, stride, pad, groups, H, B): YOLO11n's stem (K = 9), a dense 3x3,
+# a strided 3x3, a pointwise conv with N not a multiple of 8, the PSA pe
+# depthwise conv, and a B=1 case with fewer than 17 GEMM rows
+INT8_SHAPES = [(1, 16, 3, 2, 1, 1, 64, 4), (32, 32, 3, 1, 1, 1, 40, 4), (64, 64, 3, 2, 1, 1, 41, 2),
+               (96, 20, 1, 1, 0, 1, 20, 2), (128, 128, 3, 1, 1, 128, 20, 2),
+               (16, 8, 3, 1, 1, 1, 3, 1)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv2d_on_the_card_matches_plain(cuda, shape):
+    """The int8 route (im2col + cuBLASLt's s8 GEMM, or the depthwise sum) on
+    the card: int32 exact against the float64 plain version and against the
+    CPU's route, channels-last input as the Predictor gives it."""
+    from yolo_scratch_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
+
+    c1, c2, k, s, p, g, H, B = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    xq = torch.randint(-127, 128, (B, c1, H, H), dtype=torch.int8, generator=gen)
+    w = torch.randint(-127, 128, (c2, c1 // g, k, k), dtype=torch.int8, generator=gen)
+    x_d = xq.to(cuda).contiguous(memory_format=torch.channels_last)
+    got = int8_conv2d(x_d, w.to(cuda), s, p, 1, g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, int8_conv2d_plain(x_d, w.to(cuda), s, p, 1, g))
+    assert torch.equal(got.cpu(), int8_conv2d(xq, w, s, p, 1, g))
+
+
+@pytest.mark.parametrize("B,N", [(32, 512), (3, 77)])
+def test_nms_custom_ops_match_plain(cuda, B, N):
+    """``yst::nms_sweep_batched`` / ``yst::nms_sweep`` called as ops launch
+    the kernels (the counters move) and equal the plain sweeps."""
+    boxes, valid = _inputs(B * N, (B, N), cuda)
+    before = dict(K.launches)
+    got = torch.ops.yst.nms_sweep_batched(boxes, valid, K._f32(0.45))
+    one = torch.ops.yst.nms_sweep(boxes[0].contiguous(), valid[0].contiguous(), K._f32(0.45))
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before["nms_sweep_batched"] + 1
+    assert K.launches["nms_sweep"] == before["nms_sweep"] + 1
+    assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
+    assert torch.equal(one, K.nms_sweep_plain(boxes[0], valid[0], 0.45))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_exported_artifact_launches_kernel_1(cuda, tmp_path, int8):
+    """A CUDA artifact of the Predictor (YOLO11n, 96 px, B=2; bf16 and int8)
+    keeps its device, launches kernel #1 once a batch through the yst op and
+    equals the live Predictor's packed output."""
+    from chip_smoke import eval_model
+    from yolo_scratch_tpu_torch import export as E
+    from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig
+    from yolo_scratch_tpu_torch.nn.quant import quantize_for_deploy
+
+    x = np.random.RandomState(0).randint(0, 256, (2, 96, 96, 1), dtype=np.uint8)
+    model = eval_model().to(cuda)
+    if int8:
+        model = quantize_for_deploy(model, [x / 255.0])
+    pred = Predictor(model, PredictorConfig(img_size=96, batch_size=2), device=cuda)
+    path = str(tmp_path / "m.pt2")
+    E.save_artifact(E.export_predictor(pred), path)
+    art = E.ArtifactPredictor(E.load_artifact(path))
+    assert art.device.type == "cuda"
+    live = pred.predict_batch(x)
+    before = K.launches["nms_sweep_batched"]
+    got = art.predict_batch(x)
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before + 1
+    assert torch.equal(got, live) and int(got[..., 6].sum()) > 0

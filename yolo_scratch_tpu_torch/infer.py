@@ -1,7 +1,8 @@
 """Batched streaming inference, the deploy path (port of ``infer.py``).
 
-Pipeline: native C++ host decode + letterbox (``csrc/yst_host.cpp``) ->
-uint8 batch to the device -> BN-folded bf16 forward (cuDNN) -> decode ->
+Pipeline: host decode + letterbox (``host.py``: the native C++ library,
+``csrc/yst_host.cpp``, or cv2 where it does not build) -> image batch to the
+device -> BN-folded bf16 forward (cuDNN) -> decode ->
 greedy NMS on the hand-written CUDA kernel -> (B, max_det, 7) packed
 detections -> boxes mapped back to original-image pixels. The decode follows
 the family: YOLO11 (DFL head) takes the fused select-then-decode, YOLOX
@@ -9,11 +10,14 @@ the family: YOLO11 (DFL head) takes the fused select-then-decode, YOLOX
 asynchronous, so host prep of the next batches overlaps it
 (``PredictorConfig.inflight``).
 
-CLI: ``python -m yolo_scratch_tpu_torch.infer --images <dir> [--weights
-state_dict.pt] [--model auto|yolo11|yolox] --out preds.json``. Runs on
-``cuda`` unless ``--device cpu``.
+An int8 model (``nn/quant.py::quantize_for_deploy``) serves through the
+same Predictor: its quantized blocks run ``ops/int8_conv.py``.
 
-Not ported yet: ``shard_over``, int8 serving, orbax checkpoints.
+CLI: ``python -m yolo_scratch_tpu_torch.infer --images <dir> [--weights
+state_dict.pt] [--model auto|yolo11|yolox] [--int8-calib N] --out
+preds.json``. Runs on ``cuda`` unless ``--device cpu``.
+
+Not ported yet: ``shard_over`` (slice F), orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -21,13 +25,12 @@ from __future__ import annotations
 import copy
 import json
 import time
-from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Sequence
+from typing import List, Sequence
 
-import numpy as np
 import torch
 
+from yolo_scratch_tpu_torch.host import HostPredictor, PredictorConfig, pack_detections
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, YOLOModel, build_yolo11, dims_from_params
 from yolo_scratch_tpu_torch.models.yolox import (
     SCALES as YOLOX_SCALES,
@@ -38,46 +41,21 @@ from yolo_scratch_tpu_torch.models.yolox import (
     yolox_eval_decode,
 )
 from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
+from yolo_scratch_tpu_torch.nn.quant import (
+    cast_for_deploy,
+    count_quantized,
+    prepare_calib_batches,
+    quantize_for_deploy,
+)
 from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.utils.device import resolve_device
 
 
-@dataclass
-class PredictorConfig:
-    img_size: int = 640
-    batch_size: int = 32
-    conf_threshold: float = 0.25
-    iou_threshold: float = 0.45
-    max_det: int = 300
-    # Fixed-shape prefilter cap, the NMS sweep's length. A binding cap drops
-    # the lowest-scoring real detections on dense scenes; raise it toward
-    # 2048 when detections per image matter more than latency.
-    pre_nms_topk: int = 512
-    letterbox: bool = True
-    bf16: bool = True
-    fuse_bn: bool = True
-    class_aware_nms: bool = False
-    host_threads: int = 4
-    u8_transfer: bool = True  # ship uint8 to the device; /255 runs there
-    fast_jpeg: bool = True  # libjpeg M/8 decode-time downscale (see data/native.py)
-    inflight: int = 3  # batches predict_paths keeps in flight
-    nms_impl: str = "kernel"  # the CUDA sweep; "pairwise" for ops/nms.py
-
-
-def pack_detections(boxes, scores, labels, valid) -> torch.Tensor:
-    """(B, max_det, 7) f32 rows [x1 y1 x2 y2 score label valid]."""
-    return torch.cat([
-        boxes.to(torch.float32),
-        scores.to(torch.float32)[..., None],
-        labels.to(torch.float32)[..., None],
-        valid.to(torch.float32)[..., None],
-    ], dim=-1)
-
-
-class Predictor:
+class Predictor(HostPredictor):
     """Batched streaming predictor over a YOLO11 (builder) or YOLOX model.
-    The model is copied, BN-folded (``fuse_bn``), cast (``bf16``) and moved
-    to ``device`` (default ``cuda``; raises if there is no GPU)."""
+    The model is copied, BN-folded (``fuse_bn``), cast (``bf16``; the int8
+    scales of a quantized model stay f32) and moved to ``device`` (default
+    ``cuda``; raises if there is no GPU)."""
 
     def __init__(self, model: YOLOModel | YOLOXModel, config: PredictorConfig = PredictorConfig(),
                  device: str | torch.device | None = None):
@@ -85,7 +63,7 @@ class Predictor:
         self.cfg = config
         model = fuse_conv_bn(model) if config.fuse_bn else copy.deepcopy(model)
         self.dtype = torch.bfloat16 if config.bf16 else torch.float32
-        model = model.to(self.device, self.dtype).eval()
+        model = cast_for_deploy(model, self.device, self.dtype).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
@@ -96,98 +74,52 @@ class Predictor:
         self.in_ch = (model.in_ch if self.is_dfl
                       else yolox_arch_from_params(model.state_dict())[0])
 
-    @torch.inference_mode()
-    def forward_feats(self, imgs) -> List[torch.Tensor]:
-        """(B, S, S, C) uint8 (or float in [0, 1]) -> raw NHWC Detect maps
-        in the working dtype."""
+    # The device program, in pieces that hold no host sync and no branch on
+    # a value, so that torch.export traces it whole (export.py).
+
+    def _forward(self, imgs) -> List[torch.Tensor]:
         x = torch.as_tensor(imgs).to(self.device)
         xx = x.to(self.dtype)
         if x.dtype == torch.uint8:
             xx = xx / 255.0
         return self.model(xx)
 
-    @torch.inference_mode()
-    def postprocess_feats(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Raw head maps -> (B, max_det, 7) packed detections."""
+    def _postprocess(self, feats: Sequence[torch.Tensor]):
         cfg, m = self.cfg, self.model
         common = dict(img_size=cfg.img_size, conf_threshold=cfg.conf_threshold,
                       iou_threshold=cfg.iou_threshold, max_det=cfg.max_det,
                       pre_nms_topk=cfg.pre_nms_topk, class_aware=cfg.class_aware_nms,
                       nms_impl=cfg.nms_impl)
         if self.is_dfl:
-            return pack_detections(*postprocess_from_feats(
-                feats, nc=m.nc, strides=m.strides, reg_max=m.reg_max, **common))
+            return postprocess_from_feats(feats, nc=m.nc, strides=m.strides,
+                                          reg_max=m.reg_max, **common)
         # YOLOX decodes in f32: bf16 box coordinates quantise to ~2.5 px at
         # 640 (exp(wh) * stride is the sensitive part)
         decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
-        return pack_detections(*postprocess(decoded, **common))
+        return postprocess(decoded, **common)
 
+    def _infer(self, imgs):
+        """(B, S, S, C) images -> (boxes (B, max_det, 4) normalised xyxy f32,
+        scores f32, labels int32, valid bool), the exported program's
+        outputs."""
+        return self._postprocess(self._forward(imgs))
+
+    @torch.inference_mode()
+    def forward_feats(self, imgs) -> List[torch.Tensor]:
+        """(B, S, S, C) uint8 (or float in [0, 1]) -> raw NHWC Detect maps
+        in the working dtype."""
+        return self._forward(imgs)
+
+    @torch.inference_mode()
+    def postprocess_feats(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Raw head maps -> (B, max_det, 7) packed detections."""
+        return pack_detections(*self._postprocess(feats))
+
+    @torch.inference_mode()
     def predict_batch(self, imgs) -> torch.Tensor:
         """(B, S, S, C) images -> (B, max_det, 7) packed detections on the
         device (asynchronous: the caller's fetch synchronises)."""
-        return self.postprocess_feats(self.forward_feats(imgs))
-
-    # -- host prep ---------------------------------------------------------
-
-    def _prepare(self, paths: Sequence[str]):
-        """-> (imgs (B, S, S, C), meta (B, 5)) from the native host library."""
-        from yolo_scratch_tpu_torch.data import native
-
-        imgs, meta, status = native.prepare_batch(
-            paths, self.cfg.img_size, channels=self.in_ch, letterbox=self.cfg.letterbox,
-            threads=self.cfg.host_threads,
-            dtype="uint8" if self.cfg.u8_transfer else "float32",
-            fast_jpeg=self.cfg.fast_jpeg)
-        if (status != 0).any():
-            raise IOError(f"decode failed: {[p for p, s in zip(paths, status) if s != 0]}")
-        return imgs, meta
-
-    def _unmap_boxes(self, boxes_norm: np.ndarray, meta_row: np.ndarray) -> np.ndarray:
-        """Normalized model-space xyxy -> original-image pixel xyxy."""
-        S = self.cfg.img_size
-        w0, h0, r, px, py = meta_row
-        b = boxes_norm * S
-        if r > 0:  # letterboxed
-            b[:, [0, 2]] = (b[:, [0, 2]] - px) / r
-            b[:, [1, 3]] = (b[:, [1, 3]] - py) / r
-        else:  # stretch
-            b[:, [0, 2]] *= w0 / S
-            b[:, [1, 3]] *= h0 / S
-        b[:, [0, 2]] = b[:, [0, 2]].clip(0, w0)
-        b[:, [1, 3]] = b[:, [1, 3]].clip(0, h0)
-        return b
-
-    # -- public API --------------------------------------------------------
-
-    def predict_paths(self, paths: Sequence[str]) -> Iterator[Dict]:
-        """Stream detections for image paths. Host prep of a batch overlaps
-        device compute of up to ``cfg.inflight`` earlier batches; each batch
-        is fetched once, packed."""
-        B = self.cfg.batch_size
-        depth = max(1, self.cfg.inflight)
-        pending: List[tuple] = []  # (paths_chunk, meta, packed_device_out)
-
-        def drain(entry):
-            chunk, meta, out = entry
-            packed = out.cpu().numpy()  # one blocking fetch per batch
-            for j, p in enumerate(chunk):
-                row = packed[j]
-                v = row[:, 6] > 0.5
-                yield {
-                    "path": str(p),
-                    "boxes": self._unmap_boxes(row[v, :4], meta[j]).tolist(),
-                    "scores": row[v, 4].tolist(),
-                    "labels": row[v, 5].astype(np.int64).tolist(),
-                }
-
-        for i in range(0, len(paths), B):
-            chunk = list(paths[i: i + B])
-            imgs, meta = self._prepare(chunk + [chunk[-1]] * (B - len(chunk)))
-            pending.append((chunk, meta, self.predict_batch(imgs)))
-            if len(pending) >= depth:
-                yield from drain(pending.pop(0))
-        for entry in pending:
-            yield from drain(entry)
+        return pack_detections(*self._infer(imgs))
 
 
 def load_deploy_model(
@@ -234,6 +166,18 @@ def load_deploy_model(
     return model.to(dev)
 
 
+def quantize_from_paths(model, cfg: PredictorConfig, paths: Sequence[str], max_batches: int,
+                        device: str | torch.device | None = None):
+    """The int8 model of the deploy CLIs: calibrate on the first
+    ``max_batches`` batches of ``paths``, host-prepped as the Predictor
+    serves them, and quantize every ``ConvBNAct``."""
+    batches = prepare_calib_batches(Predictor(model, cfg, device=device), paths, max_batches)
+    model = quantize_for_deploy(model, batches)
+    print(f"int8: quantized {count_quantized(model)} conv blocks "
+          f"(calibrated on {len(batches)} batches)")
+    return model
+
+
 def main(argv=None):
     import argparse
 
@@ -257,6 +201,9 @@ def main(argv=None):
     p.add_argument("--class-aware", action="store_true", help="class-aware NMS")
     p.add_argument("--topk", type=int, default=PredictorConfig.pre_nms_topk,
                    help="prefilter cap (pre_nms_topk): the NMS sweep length")
+    p.add_argument("--int8-calib", type=int, default=0, metavar="N",
+                   help="serve int8 (nn/quant.py): calibrate activation scales on the first "
+                        "N input batches, then quantize every ConvBNAct (0 = off)")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     args = p.parse_args(argv)
 
@@ -274,6 +221,8 @@ def main(argv=None):
         img_size=args.imgsz, batch_size=args.batch, conf_threshold=args.conf,
         iou_threshold=args.iou, letterbox=not args.stretch,
         class_aware_nms=args.class_aware, pre_nms_topk=args.topk)
+    if args.int8_calib:
+        model = quantize_from_paths(model, cfg, paths, args.int8_calib, args.device)
     predictor = Predictor(model, cfg, device=args.device)
 
     t0 = time.perf_counter()

@@ -11,7 +11,10 @@ BatchNorm trains as flax's does (:class:`BatchNorm2d`): its running variance
 follows the biased batch variance, where ``nn.BatchNorm2d`` follows the
 unbiased one.
 
-Not ported here: the int8 ``quant`` / ``calib`` hooks of ``ConvBNAct``.
+``ConvBNAct`` carries the JAX block's two deploy hooks, both inert unless
+``nn/quant.py`` sets them: calibration (it records the conv input's absmax,
+or the whole input for quantile calibration) and int8 inference (an exact
+s8 x s8 -> s32 conv, ``ops/int8_conv.py``, dequantised into the epilogue).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 
 from yolo_scratch_tpu_torch.ops.anchors import make_anchors
 from yolo_scratch_tpu_torch.ops.boxes import dist2bbox
+from yolo_scratch_tpu_torch.ops.int8_conv import int8_conv2d
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -64,8 +68,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
+#: the int8 buffers of a quantized ``ConvBNAct``
+QUANT_BUFFERS = ("w_q", "s_w", "s_act")
+
+
 class ConvBNAct(nn.Module):
-    """Conv2d(bias=False) + BatchNorm (eps 1e-3, momentum 0.03) + SiLU."""
+    """Conv2d(bias=False) + BatchNorm (eps 1e-3, momentum 0.03) + SiLU.
+
+    Two deploy-only hooks, set by ``nn/quant.py`` and inert otherwise:
+
+    * ``calib`` ("absmax" or "full"): each forward records, in
+      ``calib_out``, the running absmax of the f32 conv input (the JAX
+      ``"calib"`` sow) or the whole f32 input (``"calib_full"``);
+    * the int8 buffers ``w_q`` (OIHW int8), ``s_w`` ((c2,) f32) and
+      ``s_act`` (0-d f32): in eval mode the conv then runs as
+      ``int8_conv2d(clamp(round(x / s_act), -127, 127), w_q)``, exact in
+      int32, dequantised by ``s_act * s_w`` into the input's dtype; the
+      folded bias is added after that cast, in the working dtype, as the
+      JAX package's neutralised BN adds it (mean 0, var + eps = 1 exactly),
+      and an unfolded BN runs as usual. The quotient divides by the 0-d
+      tensor ``s_act``: CUDA turns a division by a Python scalar into a
+      multiply by its reciprocal, 1 ulp off. A ``state_dict`` holding the
+      buffers loads them into a block that has none."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
                  g: int = 1, d: int = 1, act: bool = True):
@@ -73,9 +97,38 @@ class ConvBNAct(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = nn.SiLU() if act else nn.Identity()
+        for name in QUANT_BUFFERS:
+            self.register_buffer(name, None)
+        self.calib: str | None = None
+        self.calib_out: torch.Tensor | None = None
 
     def forward(self, x):
+        if self.calib is not None:
+            self._observe(x.detach().float())
+        if self.w_q is not None and not self.training:
+            return self.act(self.bn(self._int8_conv(x)))
         return self.act(self.bn(self.conv(x)))
+
+    def _observe(self, xf: torch.Tensor) -> None:
+        if self.calib == "absmax":
+            m = xf.abs().amax()
+            self.calib_out = m if self.calib_out is None else torch.maximum(self.calib_out, m)
+        else:
+            self.calib_out = xf
+
+    def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        xq = torch.clamp(torch.round(x.float() / self.s_act), -127, 127).to(torch.int8)
+        y = int8_conv2d(xq, self.w_q, c.stride[0], c.padding[0], c.dilation[0], c.groups)
+        y = (y.float() * (self.s_act * self.s_w)[:, None, None]).to(x.dtype)
+        return y if c.bias is None else y + c.bias[:, None, None]
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name in QUANT_BUFFERS:
+            if prefix + name in state_dict:
+                self.register_buffer(name, state_dict[prefix + name].to(
+                    self.conv.weight.device, copy=True))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 class Bottleneck(nn.Module):

@@ -14,11 +14,14 @@ the NMS entry points built on them (port of ``ops/pallas_nms.py``).
 The kernels live in ``csrc/nms_sweep.cu`` (built with nvcc for sm_90a at
 first use, loaded with ctypes). Each sweep runs in two phases: an IoU
 bitmask over all pairs, one 64-bit word per (row, 64 columns), then a
-serial reduce over 64-pivot blocks. A sweep wrapper launches both kernels
-on a CUDA tensor and runs the plain PyTorch version of the same sweep on a
-CPU tensor; any other device raises. ``launches`` counts wrapper calls that
-launched the kernels. :func:`nms_iou_mask_plain` and :func:`nms_reduce_plain`
-are the two phases in plain PyTorch, in the kernels' word layout.
+serial reduce over 64-pivot blocks. Each sweep is a ``torch.library``
+custom op (``yst::nms_sweep_batched``, ``yst::nms_sweep``), so an exported
+program reaches the kernels too: on a CUDA tensor the op launches both
+kernels, on a CPU tensor it runs the plain PyTorch version of the same
+sweep; any other device raises. ``launches`` counts the op calls that
+launched the kernels, eager or exported. :func:`nms_iou_mask_plain` and
+:func:`nms_reduce_plain` are the two phases in plain PyTorch, in the
+kernels' word layout.
 """
 
 from __future__ import annotations
@@ -229,16 +232,39 @@ def _iou_mask(boxes: torch.Tensor, iou_threshold: float,
     return mask[..., :-(-boxes.shape[-2] // 64)]
 
 
-def _dispatch(name, plain, boxes, valid, iou_threshold):
+# The two sweeps as torch.library custom ops: the eager path and a
+# torch.export program (export.py) run the same op, whose CUDA kernel
+# launches the hand-written kernels and whose CPU kernel runs the plain
+# version. A device with neither (meta, say) raises in the wrapper; under
+# export the op's fake implementation gives the output's shape.
+
+@torch.library.custom_op("yst::nms_sweep_batched", mutates_args=(), device_types="cuda")
+def _sweep_batched_op(boxes: torch.Tensor, valid: torch.Tensor,
+                      iou_threshold: float) -> torch.Tensor:
+    return _launch("nms_sweep_batched", boxes, valid, iou_threshold)
+
+
+@torch.library.custom_op("yst::nms_sweep", mutates_args=(), device_types="cuda")
+def _sweep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    return _launch("nms_sweep", boxes, valid, iou_threshold)
+
+
+for _op, _plain in ((_sweep_batched_op, nms_sweep_batched_plain), (_sweep_op, nms_sweep_plain)):
+    _op.register_kernel("cpu")(_plain)
+    _op.register_fake(lambda boxes, valid, iou_threshold: torch.empty_like(valid))
+del _op, _plain
+
+_OPS = {"nms_sweep_batched": _sweep_batched_op, "nms_sweep": _sweep_op}
+
+
+def _dispatch(name, boxes, valid, iou_threshold):
     boxes = boxes.to(torch.float32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     if valid.numel() == 0:
         return valid.clone()
-    if boxes.device.type == "cpu":
-        return plain(boxes, valid, iou_threshold)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {boxes.device}")
-    return _launch(name, boxes, valid, _f32(iou_threshold))
+    return _OPS[name](boxes, valid, _f32(iou_threshold))
 
 
 def nms_sweep_batched(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
@@ -246,15 +272,14 @@ def nms_sweep_batched(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     """Batched greedy suppression, kernel #1 (the IoU mask over the whole
     card, then a reduce of four warps per image): boxes (B, N, 4) xyxy with
     each row score-descending, valid (B, N) -> keep (B, N) bool."""
-    return _dispatch("nms_sweep_batched", nms_sweep_batched_plain,
-                     boxes_sorted, valid_sorted, iou_threshold)
+    return _dispatch("nms_sweep_batched", boxes_sorted, valid_sorted, iou_threshold)
 
 
 def nms_sweep(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
               iou_threshold: float = 0.45) -> torch.Tensor:
     """Single-image greedy suppression, kernel #2 (kernel #1's two phases
     at B = 1): boxes (N, 4) score-descending, valid (N,) -> keep (N,) bool."""
-    return _dispatch("nms_sweep", nms_sweep_plain, boxes_sorted, valid_sorted, iou_threshold)
+    return _dispatch("nms_sweep", boxes_sorted, valid_sorted, iou_threshold)
 
 
 # ------------------------------------------------------------- entry points

@@ -94,3 +94,31 @@ def time_ms(fn: Callable[[], object], reps: int, windows: int = 5) -> float:
         torch.cuda.synchronize()
         per.append(start.elapsed_time(end) / reps)
     return statistics.median(per)
+
+
+def ranges_ms(fns: dict[str, Callable[[], object]], reps: int = 5) -> dict[str, float]:
+    """Device ms of one call of each ``fns[name]``, all in ONE profiler
+    session: each name's ``reps`` calls run inside a ``record_function``
+    range of that name, whose device time sums the kernels launched under
+    it. For comparing many small programs without a session each (the
+    profiler drops events across many sessions). A range with no device
+    time raises."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with record_function(name):
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+    out = dict.fromkeys(fns, 0.0)
+    for e in prof.events():
+        if e.name in out:
+            out[e.name] += e.device_time_total
+    empty = [n for n, v in out.items() if v <= 0]
+    if empty:
+        raise AssertionError(f"profiler saw no device time under {empty}")
+    return {n: v / reps / 1e3 for n, v in out.items()}

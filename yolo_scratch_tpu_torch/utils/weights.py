@@ -6,7 +6,11 @@
   HWIO -> OIHW;
 * ``params .../bn/{scale,bias}`` -> ``bn.{weight,bias}``;
 * ``batch_stats .../bn/{mean,var}`` -> ``bn.running_{mean,var}`` (plus a
-  zero ``num_batches_tracked``, which the JAX tree does not carry).
+  zero ``num_batches_tracked``, which the JAX tree does not carry);
+* the int8 ``quant`` collection (``nn/quant.py``), ``.../{w_q,s_w,s_act}``
+  -> the block's buffers of those names, ``w_q`` HWIO -> OIHW and int8, the
+  scales f32 as they are (``ConvBNAct`` loads them into a block that has
+  none).
 
 A YOLOX tree (top-level ``backbone``) keeps its tokens: the port's YOLOX
 modules carry the flax names (``backbone/dark2_csp/m_0_cv1`` ->
@@ -40,8 +44,8 @@ def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()) -> Iterator:
 
 def state_dict_from_jax(variables: Mapping[str, Any],
                         dtype: np.dtype = np.float32) -> Dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` tree of arrays -> port ``state_dict``,
-    its floating tensors in ``dtype``."""
+    """``{"params", "batch_stats"[, "quant"]}`` tree of arrays -> port
+    ``state_dict``, its parameters and BN statistics in ``dtype``."""
     out: Dict[str, torch.Tensor] = {}
     token = (lambda t: t) if "backbone" in variables["params"] else _split_numeric
     for path, leaf, arr in _leaves(variables["params"]):
@@ -59,6 +63,15 @@ def state_dict_from_jax(variables: Mapping[str, Any],
         prefix = ".".join(token(p) for p in path)
         out[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(arr, dtype=dtype))
         out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for path, leaf, arr in _leaves(variables.get("quant", {})):
+        prefix = ".".join(token(p) for p in path)
+        if leaf == "w_q":
+            out[f"{prefix}.w_q"] = torch.from_numpy(
+                np.array(arr, dtype=np.int8)).permute(3, 2, 0, 1).contiguous()
+        elif leaf in ("s_w", "s_act"):
+            out[f"{prefix}.{leaf}"] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        else:
+            raise ValueError(f"unhandled quant leaf {'/'.join(path + (leaf,))}")
     return out
 
 
