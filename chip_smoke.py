@@ -81,7 +81,18 @@ Phases (any failure raises and exits non-zero):
    ``predict_paths``, a poisoned request failing alone, live and over a
    bf16 artifact; (e) ``infer.main --int8-calib 1`` on those PNGs, host
    prep through the cv2 tier where the native library does not build.
-   Kernel #1's counter is zeroed before each path and read after.
+   Kernel #1's counter is zeroed before each path and read after;
+10. multi-GPU, on the crater YOLO11n at 640, f32 with TF32 off: (a) two
+   ranks on the one card over gloo, the sync step at global B=4 against
+   the one-process card step and the local step against the same two
+   ranks on the CPU, each in deterministic mode; (b) a one-rank NCCL
+   group's step equal to the plain step bit for bit; a val batch through
+   the mesh eval step on every rank against the plain sweep; (c)
+   ``train.cli.main --mesh 2`` (two epochs, a resumed third, a
+   ``--bn-mode local`` epoch, ``val.main`` on rank 0's checkpoint); (d)
+   ``Predictor.shard_over`` over two replicas at B=32 against unsharded
+   Predictors at B=16; (e) (c) over NCCL and (d) across cards where there
+   are two or more, else one line saying why not.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -90,6 +101,7 @@ and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -136,6 +148,9 @@ from yolo_scratch_tpu_torch.ops.decode import (
     select_candidates,
 )
 from yolo_scratch_tpu_torch.ops.matching import DEFAULT_THRESHOLDS, batched_tp_marks
+from yolo_scratch_tpu_torch.parallel import distributed as D
+from yolo_scratch_tpu_torch.parallel.distributed import mesh_transport
+from yolo_scratch_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
 from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
 from yolo_scratch_tpu_torch.train.state import create_train_state
@@ -642,65 +657,72 @@ TRAIN_BATCH, TRAIN_EPOCHS = 16, 2
 TRAIN_KEYS = ("loss", "box_loss", "cls_loss", "dfl_loss")
 
 
-def _train_setup(model, loss_fn=None):
+def _train_setup(model, loss_fn=None, **step_kwargs):
     """A train state with EMA and the f32 train step (TF32 off) of ``model``
-    (the v8 loss unless ``loss_fn``), with the schedule of a 10-epoch run of
-    one step an epoch."""
+    (the v8 loss unless ``loss_fn``; ``step_kwargs``, such as a mesh, to
+    ``build_train_step_custom``), with the schedule of a 10-epoch run of one
+    step an epoch."""
     state = create_train_state(model, make_optimizer(cosine_epoch_schedule(1e-3, 10, 1)),
                                use_ema=True)
     if loss_fn is None:
         loss_fn = v8_loss_adapter(DetectionLossConfig(nc=model.nc, strides=model.strides))
-    step = build_train_step_custom(model, loss_fn, matmul_precision="highest")
+    step = build_train_step_custom(model, loss_fn, matmul_precision="highest", **step_kwargs)
     return state, step
 
 
-def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3, loss_fn=None,
-                        keys=TRAIN_KEYS) -> dict:
-    """One train step of ``model`` on ``dev`` against the same step on the
-    CPU, from the same weights on the same batch, f32 with TF32 off, with
-    ``loss_fn`` (default: the v8 loss). Raises unless: the loss ``keys``
-    agree to rtol 1e-4 and ``num_fg``, where the loss reports it, exactly; each gradient tensor lies
-    within ``grad_tol * max|g_cpu|`` (at least 1e-4 of the largest over all
-    tensors: a gradient that is 0 in exact arithmetic holds rounding noise
-    only); BN running variances rtol 1e-4, running means within 1e-5; the
-    step counters and optimizer counts are 1 on both; the parameters lie
-    within ``lr * |u_dev - u_cpu| + 1e-6``, ``u`` being the Adam direction
-    each side's moments give (the LR of the step and the update rule
-    applied alike). Returns the worst relative differences."""
-    runs = {}
-    for where in ("cpu", dev):
-        m = copy.deepcopy(model).to(where)
-        state, step = _train_setup(m, loss_fn)
-        lr = state.tx.lr(state.opt_state.count)
-        state, metrics = step(state, batch)
-        names = [n for n, _ in m.named_parameters()]
-        runs[str(where)] = dict(
-            metrics={k: float(v) for k, v in metrics.items()}, lr=lr,
-            grads={n: p.grad.detach().cpu() for n, p in m.named_parameters()},
-            sd={k: v.detach().cpu() for k, v in m.state_dict().items()},
-            mu=dict(zip(names, (t.cpu() for t in state.opt_state.mu))),
-            nu=dict(zip(names, (t.cpu() for t in state.opt_state.nu))),
-            counts=(state.step, state.opt_state.count))
-    ref, got = runs["cpu"], runs[str(dev)]
+def step_record(model, state, metrics, lr) -> dict:
+    """One train step's outcome on the host: metrics, gradients, state dict,
+    Adam moments, counts and the LR applied."""
+    names = [n for n, _ in model.named_parameters()]
+    return dict(
+        metrics={k: float(v) for k, v in metrics.items()}, lr=lr,
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        sd={k: v.detach().cpu() for k, v in model.state_dict().items()},
+        mu=dict(zip(names, (t.cpu() for t in state.opt_state.mu))),
+        nu=dict(zip(names, (t.cpu() for t in state.opt_state.nu))),
+        counts=(state.step, state.opt_state.count))
+
+
+def run_train_step(model, batch, where, loss_fn=None) -> dict:
+    """One f32 step (TF32 off) of a copy of ``model`` on ``where``."""
+    m = copy.deepcopy(model).to(where)
+    state, step = _train_setup(m, loss_fn)
+    lr = state.tx.lr(state.opt_state.count)
+    state, metrics = step(state, batch)
+    return step_record(m, state, metrics, lr)
+
+
+def check_step_pair(got: dict, ref: dict, what: str, grad_tol: float = 1e-3,
+                    keys=TRAIN_KEYS) -> dict:
+    """Raises unless ``got`` (a :func:`step_record`) agrees with ``ref``:
+    the loss ``keys`` to rtol 1e-4 and ``num_fg``, where the loss reports
+    it, exactly; each gradient tensor within ``grad_tol * max|g_ref|`` (at
+    least 1e-4 of the largest over all tensors: a gradient that is 0 in
+    exact arithmetic holds rounding noise only); BN running variances rtol
+    1e-4, running means within 1e-5; the step counters and optimizer counts
+    1 on both; the parameters within ``lr * |u_got - u_ref| + 1e-6``, ``u``
+    being the Adam direction each side's moments give (the LR of the step
+    and the update rule applied alike). Returns the worst relative
+    differences."""
     out = {}
     rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
            for k in keys}
     out["loss"] = max(rel.values())
     if out["loss"] > 1e-4:
-        raise AssertionError(f"train loss on {dev} differs from the CPU's: {rel}")
+        raise AssertionError(f"{what}: train loss differs: {rel}")
     if got["metrics"].get("num_fg") != ref["metrics"].get("num_fg"):
-        raise AssertionError(f"num_fg on {dev} {got['metrics']['num_fg']} vs the CPU's "
+        raise AssertionError(f"{what}: num_fg {got['metrics']['num_fg']} vs "
                              f"{ref['metrics']['num_fg']}")
     if got["counts"] != (1, 1) or ref["counts"] != (1, 1) or got["lr"] != ref["lr"]:
-        raise AssertionError(f"counts {got['counts']} / {ref['counts']}, lr {got['lr']} / "
-                             f"{ref['lr']}")
+        raise AssertionError(f"{what}: counts {got['counts']} / {ref['counts']}, lr "
+                             f"{got['lr']} / {ref['lr']}")
     floor = 1e-4 * max(float(g.abs().max()) for g in ref["grads"].values())
     out["grad"] = 0.0
     for n, g in ref["grads"].items():
         err = float((got["grads"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
         out["grad"] = max(out["grad"], err)
         if err > grad_tol:
-            raise AssertionError(f"gradient {n} on {dev}: {err:.3g} of max|g_cpu| > {grad_tol}")
+            raise AssertionError(f"{what}: gradient {n}: {err:.3g} of max|g_ref| > {grad_tol}")
     out["running_var"] = out["running_mean"] = 0.0
     for k, r in ref["sd"].items():
         if k.endswith("running_var"):
@@ -713,7 +735,7 @@ def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3, loss_fn=None,
         key = k.rsplit(".", 1)[1]
         out[key] = max(out[key], err)
         if err > lim:
-            raise AssertionError(f"BN statistic {k} on {dev}: {err:.3g} > {lim}")
+            raise AssertionError(f"{what}: BN statistic {k}: {err:.3g} > {lim}")
     c, lr = ref["counts"][1], ref["lr"]
 
     def direction(mu, nu):
@@ -726,8 +748,20 @@ def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3, loss_fn=None,
         err = (got["sd"][n] - ref["sd"][n]).abs()
         out["param"] = max(out["param"], float(err.max()))
         if not bool((err <= bound).all()):
-            raise AssertionError(f"parameter {n} on {dev} moved otherwise than on the CPU")
+            raise AssertionError(f"{what}: parameter {n} moved otherwise")
     return out
+
+
+def compare_train_steps(model, batch, dev, grad_tol: float = 1e-3, loss_fn=None,
+                        keys=TRAIN_KEYS) -> dict:
+    """One train step of ``model`` on ``dev`` against the same step on the
+    CPU, from the same weights on the same batch, f32 with TF32 off, with
+    ``loss_fn`` (default: the v8 loss), held by :func:`check_step_pair`
+    (the CPU's step the reference; cuDNN's wgrad sums in another order).
+    Returns the worst relative differences."""
+    ref = run_train_step(model, batch, "cpu", loss_fn)
+    got = run_train_step(model, batch, dev, loss_fn)
+    return check_step_pair(got, ref, f"{dev} vs CPU", grad_tol, keys)
 
 
 def train_phase_times(step, state, batch, reps: int = 5, augment=None) -> dict:
@@ -1553,6 +1587,361 @@ def deploy_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# the multi-GPU phase (10): the crater YOLO11n at 640, f32 with TF32 off
+MESH_RANKS, MESH_BATCH = 2, 4
+STEP_RECORDS = ("sync", "local_card", "local_cpu")
+
+
+def _mesh_step(model, batch, mesh, bn_mode: str) -> dict:
+    """This rank's mesh step of a copy of ``model`` on ``mesh.device``, on
+    its rows of the global ``batch``; the :func:`step_record`."""
+    m = copy.deepcopy(model).to(mesh.device)
+    state, step = _train_setup(m, mesh=mesh, bn_mode=bn_mode)
+    lr = state.tx.lr(state.opt_state.count)
+    state, metrics = step(state, shard_batch(batch, mesh))
+    return step_record(m, state, metrics, lr)
+
+
+def _records_equal(a: dict, b: dict) -> bool:
+    return (a["metrics"] == b["metrics"] and a["counts"] == b["counts"]
+            and all(torch.equal(a[part][k], b[part][k])
+                    for part in ("grads", "sd", "mu", "nu") for k in a[part]))
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """cuDNN's benchmark off and its deterministic algorithms on (torch's
+    too, warning where it has none): the algorithm behind each convolution
+    is then chosen by cuDNN's heuristics, not by timing, as the training
+    CLI's steps (benchmark off) choose theirs, and the step repeats bit for
+    bit. Phase 10's step checks run in it: with two ranks timing
+    algorithms on one card at once, benchmark mode picks them by noisy
+    timings, and the gradients the checks compare change from run to run."""
+    flags = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
+
+
+def _one_rank_nccl_step(model, batch, dev) -> dict:
+    """(b) The sync step over a one-rank NCCL group against the plain step,
+    both run twice in :func:`deterministic_mode`: the plain step must
+    repeat itself bit for bit, and the NCCL step equal it."""
+    import torch.distributed as dist
+
+    group = dist.new_group(ranks=[0], backend="nccl")  # collective: every rank calls it
+    if dist.get_rank() != 0:
+        return {}
+    with deterministic_mode():
+        plain = [run_train_step(model, batch, dev) for _ in range(2)]
+        one = Mesh((dev,), rank=0, group=group)
+        nccl = [_mesh_step(model, batch, one, "sync") for _ in range(2)]
+    return dict(plain_repeats=_records_equal(*plain), nccl_repeats=_records_equal(*nccl),
+                nccl_equals_plain=_records_equal(nccl[0], plain[0]),
+                transport=mesh_transport(one))
+
+
+def _mesh_val_check(model, batch, mesh) -> dict:
+    """This rank's rows of a val batch through the mesh eval step: kernel #1
+    launches once, and the detections equal the same candidates through
+    ``nms_sweep_batched_plain``, exactly."""
+    step = make_eval_step(model, match_thresholds=DEFAULT_THRESHOLDS, mesh=mesh)
+    b = batch_to_device(shard_batch(batch, mesh), mesh.device)
+    feats = step.forward(b)
+    K.reset_launches()
+    metrics, dets, _ = step.from_feats(feats, b)
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    with torch.inference_mode():
+        boxes, scores, labels, valid, _ = select_candidates(
+            feats, model.nc, model.strides, model.reg_max, 0.25, EVAL_TOPK)
+        keep = K.nms_sweep_batched_plain(boxes, valid, IOU)
+        ref = _finish(boxes, scores, labels, K._cap(keep, 300), 300, IMGSZ)
+    return dict(launches=launches, equal=all(torch.equal(g, r) for g, r in zip(dets, ref)),
+                swept=int(valid.sum()), kept=int(dets[3].sum()), loss=float(metrics["loss"]))
+
+
+def mesh_rank(rank: int, n: int, init_method: str, spec_path: str, out_dir: str) -> dict:
+    """Rank ``rank`` of ``n`` on cuda:0 over gloo (phase 10 (a), (b) and the
+    validation check): writes its step records (taken in
+    :func:`deterministic_mode`) to ``out_dir`` and returns the checks'
+    outcomes and its train step's phases."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic_mode's cuBLAS
+    torch.backends.cudnn.benchmark = True
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device("cuda", 0)
+    D.initialize(init_method, n, rank)
+    mesh = D.make_global_mesh(dev)
+    D.barrier(mesh)
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n")
+    model.load_state_dict(spec["weights"])
+    cpu_mesh = Mesh((torch.device("cpu"),) * n, rank=rank, group=mesh.group)
+    with deterministic_mode():
+        records = {"sync": _mesh_step(model, spec["batch"], mesh, "sync"),
+                   "local_card": _mesh_step(model, spec["batch"], mesh, "local"),
+                   "local_cpu": _mesh_step(model, spec["batch"], cpu_mesh, "local")}
+    torch.save(records, f"{out_dir}/rank{rank}.pt")
+    out = dict(rank=rank, transport=mesh_transport(mesh), nccl=_one_rank_nccl_step(
+        model.to(dev), spec["batch"], dev))
+    evm = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n")
+    evm.load_state_dict(spec["eval_weights"])
+    out["val"] = _mesh_val_check(evm.to(dev).eval(), spec["val_batch"], mesh)
+    # the step's phases at the CLI's global batch, all-reduce included
+    m = copy.deepcopy(model).to(dev)
+    state, step = _train_setup(m, mesh=mesh, bn_mode="sync")
+    out["phases"] = train_phase_times(step, state, shard_batch(spec["phase_batch"], mesh))
+    return out
+
+
+def _histories(result: dict) -> list:
+    """Each rank's per-epoch losses (timings dropped) from ``train.cli.main``."""
+    return [[{part: {k: v for k, v in h[part].items()
+                     if k not in ("imgs_per_sec", "epoch_time_s")}
+              for part in ("train", "val")} for h in r["fit"]["history"]]
+            for r in result["ranks"]]
+
+
+def mesh_cli_run(flags: list, n: int) -> tuple:
+    """``train.cli.main(flags)`` with ``--mesh n``: (its result, its first
+    printed line, kernel #1's launches summed over the ranks). Raises unless
+    every rank's losses are finite and equal."""
+    import contextlib
+    import io
+    from yolo_scratch_tpu_torch.train import cli as train_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_cli.main(flags + ["--mesh", str(n)])
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        log("  | " + line)
+    hist = _histories(out)
+    if any(h != hist[0] for h in hist):
+        raise AssertionError(f"the ranks' losses differ: {hist}")
+    losses = [v for h in hist[0] for part in h.values() for k, v in part.items()
+              if k in TRAIN_KEYS]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    return out, printed[0], sum(r["launches"]["nms_sweep_batched"] for r in out["ranks"])
+
+
+def mesh_train_path(dev, n: int, transport: str) -> dict:
+    """(c): ``train.cli.main --mesh n`` at 640/B=16 for 2 epochs, a resumed
+    third, ``val.main`` on rank 0's checkpoint, then one ``--bn-mode local``
+    epoch. Returns kernel #1's launches summed over ranks and runs, and the
+    train img/s of rank 0's epochs."""
+    from yolo_scratch_tpu_torch import val
+
+    B = TRAIN_BATCH // n * n  # --batch must divide by the ranks
+    data = SyntheticDataset(n=64, img_size=IMGSZ)
+    n_val = int(len(data) * 0.2)
+    val_batches = -(-n_val // B)
+    train_batches = -(-(len(data) - n_val) // B)
+    launches, rates = 0, []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as save_dir, \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as local_dir:
+        flags = ["--data", "synthetic", "--scale", "n", "--imgsz", str(IMGSZ), "--batch",
+                 str(B), "--ema"]
+        t0 = time.perf_counter()
+        first, line, got = mesh_cli_run(flags + ["--save-dir", save_dir, "--epochs",
+                                                 str(TRAIN_EPOCHS)], n)
+        want_line = f"mesh: {n} ranks over {transport}, devices "
+        if not line.startswith(want_line):
+            raise AssertionError(f"first line {line!r}; want it to start {want_line!r}")
+        if got != val_batches * TRAIN_EPOCHS * n:
+            raise AssertionError(f"fit launched kernel #1 {got} times over its ranks; want "
+                                 f"{val_batches} val batches x {TRAIN_EPOCHS} epochs x {n}")
+        launches += got
+        mgr = CheckpointManager(save_dir)
+        step_before = mgr.load_raw("last")["step"]
+        second, _, got = mesh_cli_run(flags + ["--save-dir", save_dir, "--epochs",
+                                               str(TRAIN_EPOCHS + 1)], n)
+        launches += got
+        resumed = [h["epoch"] for h in second["history"]]
+        step_after = mgr.load_raw("last")["step"]
+        if (got, step_before, step_after, resumed) != (
+                val_batches * n, TRAIN_EPOCHS * train_batches,
+                (TRAIN_EPOCHS + 1) * train_batches, [TRAIN_EPOCHS]):
+            raise AssertionError(f"resume: launches {got}, steps {step_before} -> "
+                                 f"{step_after}, epochs run {resumed}")
+        for h in first["history"] + second["history"]:
+            rates.append(h["train"]["imgs_per_sec"])
+            log(f"  epoch {h['epoch']}: train loss {h['train']['loss']:.4f}, "
+                f"{h['train']['imgs_per_sec']:.1f} img/s over the epoch (all ranks); val "
+                f"loss {h['val']['loss']:.4f}, mAP50 {h['val']['mAP50']:.4g}")
+        out = val.main(["--ckpt", save_dir, "--which", "last", "--ema", "--imgsz", str(IMGSZ),
+                        "--batch", str(B)])
+        if not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"val.main --ckpt printed non-finite values {out}")
+        log(f"rank 0's checkpoint through val.main --ckpt --which last --ema: loss "
+            f"{out['loss']:.4f}, mAP50 {out['mAP50']:.4g}; resume: step counter "
+            f"{step_before} -> {step_after}, epochs run {resumed}")
+        batch = next(iter(Loader(data, B, max_gt=100, prefetch=0)))
+        log("trained EMA detections (rank 0's checkpoint) equal the plain sweep's: "
+            + trained_detections_check(save_dir, batch, dev))
+        _, _, got = mesh_cli_run(flags + ["--save-dir", local_dir, "--epochs", "1",
+                                          "--bn-mode", "local"], n)
+        if got != val_batches * n:
+            raise AssertionError(f"--bn-mode local launched kernel #1 {got} times")
+        launches += got
+        log(f"train path over --mesh {n} ({transport}): 2 epochs, a resumed third and one "
+            f"--bn-mode local epoch in {time.perf_counter() - t0:.1f} s; kernel #1 launches "
+            f"summed over ranks {launches}")
+    return dict(launches=launches, rates=rates)
+
+
+def mesh_predictor_path(model, dev_mesh: Mesh, ident: str) -> dict:
+    """(d): ``Predictor.shard_over(dev_mesh)`` at B=32 against unsharded
+    Predictors on each shard's rows (exactly), at conf 0 against the plain
+    sweep (exactly), and img/s beside the unsharded Predictor's."""
+    B, S, n = BATCH, IMGSZ, dev_mesh.size
+    xs = [np.random.RandomState(70 + i).randint(0, 256, (B, S, S, 1), dtype=np.uint8)
+          for i in range(3)]
+    cfg = PredictorConfig(img_size=S, batch_size=B)
+    sharded = Predictor(model, cfg, device=dev_mesh.devices[0]).shard_over(dev_mesh)
+    K.reset_launches()
+    packed = sharded.predict_batch(xs[0])
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    check_packed(packed, B, 300)
+    if launches != n:
+        raise AssertionError(f"shard_over over {n} replicas launched kernel #1 {launches} times")
+    b = B // n
+    for i, dev in enumerate(dev_mesh.devices):
+        single = Predictor(model, PredictorConfig(img_size=S, batch_size=b), device=dev)
+        ref = single.predict_batch(xs[0][i * b:(i + 1) * b]).to(packed.device)
+        if not torch.equal(packed[i * b:(i + 1) * b], ref):
+            raise AssertionError(f"shard {i}'s detections differ from an unsharded "
+                                 f"Predictor at B={b} on the same rows")
+    conf0 = Predictor(model, PredictorConfig(img_size=S, batch_size=B, conf_threshold=0.0),
+                      device=dev_mesh.devices[0]).shard_over(dev_mesh)
+    with torch.inference_mode():
+        got = conf0.predict_batch(xs[1])
+        ref = torch.cat([plain_packed(r, r.forward_feats(xs[1][i * b:(i + 1) * b])).to(
+            got.device) for i, r in enumerate(conf0.replicas)])
+    if not torch.equal(got, ref):
+        raise AssertionError("conf-0 sharded detections differ from the plain sweep's")
+    rates = {}
+    unsharded = Predictor(model, cfg, device=dev_mesh.devices[0])
+    for name, p in (("sharded", sharded), ("unsharded", unsharded)):
+        p.predict_batch(xs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            p.predict_batch(xs[i % 3])
+        torch.cuda.synchronize()
+        rates[name] = B * 10 / (time.perf_counter() - t0)
+    log(f"shard_over over {n} replicas ({', '.join(map(str, dev_mesh.devices))}), B={B}: "
+        f"each shard equals an unsharded Predictor at B={b} on its rows, exactly; conf 0: "
+        f"equal to the plain sweep ({int(got[..., 6].sum())} kept); kernel #1 {launches} "
+        f"launches a batch; {rates['sharded']:.1f} img/s sharded, {rates['unsharded']:.1f} "
+        f"unsharded (bf16, conf 0.25) on {ident}")
+    return dict(launches=launches, rates=rates)
+
+
+def multigpu_phase(dev, ident: str) -> dict:
+    """Phase 10: (a) 2 ranks on the one card over gloo, sync step against
+    the one-process card step and local step against the CPU's; (b) a
+    one-rank NCCL group, bit for bit; a val batch through the mesh eval step
+    on every rank against the plain sweep; (c) the training CLI over the
+    mesh; (d) ``shard_over``; (e) the same across cards where there are 2
+    or more."""
+    t_phase = time.perf_counter()
+    n = MESH_RANKS
+    data = SyntheticDataset(n=64, img_size=IMGSZ)
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0)
+    spec = dict(weights=model.state_dict(), eval_weights=eval_model().state_dict(),
+                batch=next(iter(Loader(data, MESH_BATCH, max_gt=100, prefetch=0))),
+                val_batch=next(iter(Loader(data, 8, max_gt=100, prefetch=0))),
+                phase_batch=next(iter(Loader(data, TRAIN_BATCH, max_gt=100, prefetch=0))))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        torch.save(spec, f"{d}/spec.pt")
+        t0 = time.perf_counter()
+        ranks = D.spawn_ranks(mesh_rank, n, (n, f"file://{d}/rendezvous", f"{d}/spec.pt", d),
+                              timeout=600)
+        spawn_s = time.perf_counter() - t0
+        records = [torch.load(f"{d}/rank{r}.pt", weights_only=False) for r in range(n)]
+    # (a)
+    if any(r["transport"] != "gloo" for r in ranks):
+        raise AssertionError(f"two ranks on one card must go over gloo: {ranks}")
+    if not all(_records_equal(records[0][k], records[r][k]) for r in range(1, n)
+               for k in STEP_RECORDS):
+        raise AssertionError("the ranks' states differ after a mesh step")
+    with deterministic_mode():
+        ref = run_train_step(model, spec["batch"], dev)
+    errs = check_step_pair(records[0]["sync"], ref, f"{n}-rank sync vs one process")
+    log(f"(a) {n} ranks on {dev} over gloo, sync step at global B={MESH_BATCH} vs the "
+        f"one-process card step (both in deterministic mode): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    errs = check_step_pair(records[0]["local_card"], records[0]["local_cpu"],
+                           f"{n}-rank local card vs CPU")
+    log(f"(a) local (DDP) step, card (deterministic mode) vs the same {n}-rank step on the "
+        f"CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + " (limits: loss rtol 1e-4, "
+        "grad 1e-3 of max|g|, running_var rtol 1e-4, running_mean 1e-5, param within lr x "
+        "the Adam directions' difference); every rank's state equal")
+    # (b)
+    nccl = ranks[0]["nccl"]
+    if nccl["transport"] != "nccl" or not all(
+            nccl[k] for k in ("plain_repeats", "nccl_repeats", "nccl_equals_plain")):
+        raise AssertionError(f"one-rank NCCL step: {nccl}")
+    log("(b) one-rank NCCL group: its sync step equals the plain card step bit for bit "
+        "(both repeat bit for bit in deterministic mode)")
+    # the validation batch through the mesh eval step on every rank
+    for r in ranks:
+        v = r["val"]
+        if v["launches"] != 1 or not v["equal"]:
+            raise AssertionError(f"rank {r['rank']}'s validation: {v}")
+    if len({r["val"]["loss"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' eval losses differ")
+    log(f"val batch of 8 through the mesh eval step: kernel #1 once on every rank, detections "
+        f"equal the plain sweep's exactly (" + "; ".join(
+            f"rank {r['rank']}: {r['val']['swept']} swept, {r['val']['kept']} kept"
+            for r in ranks) + f"), eval loss {ranks[0]['val']['loss']:.4f} on every rank")
+    ph = ranks[0]["phases"]
+    log(f"mesh train step at global B={TRAIN_BATCH} ({TRAIN_BATCH // n} a rank, {n} ranks on "
+        f"one card over gloo), rank 0's phases ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ph.items()) + f"; all-reduce {ph['all_reduce']:.2f} ms a "
+        f"step on {ident}; the ranks' start-up and checks {spawn_s:.1f} s")
+    # (c), (d)
+    tr = mesh_train_path(dev, n, "gloo")
+    launches = tr["launches"]
+    pr = mesh_predictor_path(eval_model(), Mesh((dev,) * n), ident)
+    launches += pr["launches"]
+    launches += across_cards(dev, ident)
+    log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, rates=tr["rates"], allreduce_ms=ph["all_reduce"])
+
+
+def across_cards(dev, ident: str) -> int:
+    """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
+    card a rank, (d) over every card, and the GPU test of a kernel launched
+    on a card that is not the current one. Returns kernel #1's launches."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"(e) not run: this machine has {cards} CUDA card; the CLI over NCCL with one "
+            "card a rank, shard_over across cards and test_kernel_runs_on_a_card_that_is_"
+            "not_current need 2 or more")
+        return 0
+    launches = mesh_train_path(dev, cards, "nccl")["launches"]
+    launches += mesh_predictor_path(eval_model(), make_mesh(cards), ident)["launches"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "tests/test_torch_kernels_gpu.py", "-k", "not_current"],
+        capture_output=True, text=True, timeout=300)
+    log("(e) test_kernel_runs_on_a_card_that_is_not_current: "
+        + proc.stdout.strip().splitlines()[-1])
+    if proc.returncode != 0 or "1 passed" not in proc.stdout:
+        raise AssertionError(f"test_kernel_runs_on_a_card_that_is_not_current:\n"
+                             f"{proc.stdout[-3000:]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -1583,13 +1972,17 @@ def main() -> int:
     ye = yolox_eval_phase(dev, ident)
     yt = yolox_train_phase(dev, ident)
     dp = deploy_phase(dev, ident)
+    mg = multigpu_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
-    # validation paths of both families, and on phase 9's int8 Predictor,
-    # artifacts, daemons and infer CLI; #2 on the B=1 postprocess of both
+    # validation paths of both families, on phase 9's int8 Predictor,
+    # artifacts, daemons and infer CLI, and on phase 10's mesh validation
+    # (every rank's, summed) and shard_over replicas; #2 on the B=1
+    # postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
-                                      + ye["launches"] + yt["launches"] + dp["launches"]),
+                                      + ye["launches"] + yt["launches"] + dp["launches"]
+                                      + mg["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

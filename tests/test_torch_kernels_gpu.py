@@ -19,6 +19,9 @@ card.
   custom ops called directly, and a CUDA ``torch.export`` artifact (bf16
   and int8), launch kernel #1 and equal the plain sweep / the live
   Predictor exactly.
+* The mesh eval step (``parallel/``): two gloo ranks sharing cuda:0 each
+  sweep their rows of one validation batch with kernel #1, keep masks and
+  detections equal to the plain sweep's, exactly.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -461,3 +464,17 @@ def test_exported_artifact_launches_kernel_1(cuda, tmp_path, int8):
     torch.cuda.synchronize()
     assert K.launches["nms_sweep_batched"] == before + 1
     assert torch.equal(got, live) and int(got[..., 6].sum()) > 0
+
+
+def test_mesh_validation_sweeps_kernel_1_on_every_rank(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (the transport rule for ranks that share a
+    card) each put their rows of one validation batch through the mesh eval
+    step: kernel #1 launches once on every rank, its keep masks equal the
+    plain sweep's and so do the step's detections, exactly."""
+    import torch_parallel_ranks as R  # beside this file (a ``tests`` package may shadow it)
+    from yolo_scratch_tpu_torch.parallel.distributed import spawn_ranks
+
+    out = spawn_ranks(R.card_val_rank, 2, (2, f"file://{tmp_path}/rendezvous"), timeout=300)
+    for r in out:
+        assert r["transport"] == "gloo" and r["launched"] == 1 and r["swept"] > 0, r
+        assert r["keep_equal"] and r["dets_equal"], r

@@ -28,6 +28,7 @@ from yolo_scratch_tpu_torch import val as tval
 from yolo_scratch_tpu_torch.data.loader import Loader
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+from yolo_scratch_tpu_torch.parallel.mesh import Mesh
 from yolo_scratch_tpu_torch.train import cli as tcli
 from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
 from yolo_scratch_tpu_torch.train.optim import make_optimizer
@@ -158,17 +159,22 @@ def test_checkpoint_reads_back_with_weights_only(tmp_path):
 
 
 def test_trainer_options_not_ported_raise(tmp_path):
-    """Only multi-GPU training (ROADMAP F) is left out; augmentation and
-    ``model_kind="yolox"`` are ported (``test_torch_yolox_train.py``), and an
-    unknown family raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP F"):
+    """Every Trainer option is ported: augmentation and ``model_kind="yolox"``
+    (``test_torch_yolox_train.py``), ``mesh`` and ``bn_mode="local"``
+    (``test_torch_parallel_train.py``). ``bn_mode="local"`` without a mesh
+    warns and trains, as the JAX Trainer does; an unknown family or BN
+    mode, and a mesh whose device is not the model's, raise."""
+    with pytest.warns(UserWarning, match="no effect without a mesh"):
         _make_trainer(tmp_path, bn_mode="local")
     ds = SyntheticDataset(n=4, img_size=64)
     loader = Loader(ds, batch_size=4, max_gt=8, prefetch=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP F"):
-        Trainer(_model(), loader, None, TrainerConfig(), mesh=object())
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="rank's device"):
+        Trainer(_model(), loader, None, TrainerConfig(), mesh=Mesh((meta, meta)))
     with pytest.raises(ValueError, match="model_kind"):
         Trainer(_model(), loader, None, TrainerConfig(), model_kind="yolov5")
+    with pytest.raises(ValueError, match="bn_mode"):
+        Trainer(_model(), loader, None, TrainerConfig(bn_mode="global"))
 
 
 @pytest.mark.parametrize("device_matching", [True, False])
@@ -326,12 +332,17 @@ def test_cli_flags_and_defaults_equal_jax_parser():
     assert tcli.resolve_train_precision("highest") == "highest"
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "ROADMAP F"),
-    (["--multihost"], "ROADMAP F"),
+@pytest.mark.parametrize("flags,error", [
+    pytest.param(["--mesh", "2", "--batch", "3"], SystemExit, id="flags0-ROADMAP F"),
+    pytest.param(["--multihost"], ValueError, id="flags1-ROADMAP F"),
 ])
-def test_cli_unported_flags_raise_with_roadmap_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_unported_flags_raise_with_roadmap_item(tmp_path, flags, error, monkeypatch):
+    """The multi-GPU flags (ROADMAP F) are ported and run
+    (``test_torch_parallel_train.py``); they raise on what they cannot run:
+    a batch that does not divide over the ranks, and ``--multihost`` with
+    neither a coordinator nor torchrun's environment."""
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(error):
         tcli.main(flags + ["--device", "cpu", "--imgsz", "64", "--save-dir", str(tmp_path)])
 
 

@@ -13,11 +13,16 @@ asynchronous, so host prep of the next batches overlaps it
 An int8 model (``nn/quant.py::quantize_for_deploy``) serves through the
 same Predictor: its quantized blocks run ``ops/int8_conv.py``.
 
+``Predictor.shard_over(mesh)`` serves batch-parallel over the devices of a
+one-process mesh (``parallel/mesh.py``): one replica a device, each running
+the whole per-image program on its contiguous rows, the outputs gathered in
+order on the first device.
+
 CLI: ``python -m yolo_scratch_tpu_torch.infer --images <dir> [--weights
 state_dict.pt] [--model auto|yolo11|yolox] [--int8-calib N] --out
 preds.json``. Runs on ``cuda`` unless ``--device cpu``.
 
-Not ported yet: ``shard_over`` (slice F), orbax checkpoints.
+Not ported yet: orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -73,6 +78,29 @@ class Predictor(HostPredictor):
         # gray or RGB by it)
         self.in_ch = (model.in_ch if self.is_dfl
                       else yolox_arch_from_params(model.state_dict())[0])
+        self.replicas: List["Predictor"] | None = None  # set by shard_over
+
+    def shard_over(self, mesh) -> "Predictor":
+        """Batch-parallel serving over ``mesh.devices`` (in place; returns
+        self): one replica of the folded, cast model on each device (two
+        replicas may share a card), the batch split contiguously, each
+        shard's whole program (forward, decode, NMS kernel #1) on its
+        device with no collective, the outputs concatenated in order on
+        the first device. ``batch_size`` must divide by the mesh size."""
+        if mesh.group is not None:
+            raise ValueError("shard_over takes a one-process mesh (parallel/mesh.py::make_mesh "
+                             "or Mesh(devices)), not a distributed one")
+        n = mesh.size
+        if self.cfg.batch_size % n:
+            raise ValueError(f"batch_size {self.cfg.batch_size} not divisible by mesh size {n}")
+        replicas = []
+        for dev in mesh.devices:
+            r = copy.copy(self)
+            r.device = torch.device(dev)
+            r.model = copy.deepcopy(self.model).to(r.device)
+            replicas.append(r)
+        self.replicas, self.device, self.model = replicas, replicas[0].device, replicas[0].model
+        return self
 
     # The device program, in pieces that hold no host sync and no branch on
     # a value, so that torch.export traces it whole (export.py).
@@ -102,7 +130,14 @@ class Predictor(HostPredictor):
         """(B, S, S, C) images -> (boxes (B, max_det, 4) normalised xyxy f32,
         scores f32, labels int32, valid bool), the exported program's
         outputs."""
-        return self._postprocess(self._forward(imgs))
+        if self.replicas is None:
+            return self._postprocess(self._forward(imgs))
+        x = torch.as_tensor(imgs)
+        n = len(self.replicas)
+        if len(x) % n:
+            raise ValueError(f"batch {len(x)} not divisible by mesh size {n}")
+        parts = [r._infer(shard) for r, shard in zip(self.replicas, x.chunk(n))]
+        return tuple(torch.cat([p[i].to(self.device) for p in parts]) for i in range(4))
 
     @torch.inference_mode()
     def forward_feats(self, imgs) -> List[torch.Tensor]:

@@ -23,7 +23,7 @@ raw regression for the no-augmentation end phase.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -141,9 +141,12 @@ def yolox_loss(
     gt_bboxes: torch.Tensor,       # (B, G, 4) normalized xyxy
     gt_mask: torch.Tensor,         # (B, G)
     cfg: YOLOXLossConfig,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ):
     """Returns (total, dict(iou_loss, obj_loss, cls_loss, l1_loss, num_fg)),
-    the dict detached."""
+    the dict detached. ``reduce`` (a sum over the ranks of a mesh) makes
+    ``num_fg`` and the batch size global: each rank's total and items are
+    then its share of the global batch's."""
     nc = cfg.nc
     no = 5 + nc
     B = outs[0].shape[0]
@@ -182,7 +185,12 @@ def yolox_loss(
                              anchor_points, strides1, gt_px, gt_labels, gt_mask)
     fg = assign.fg_mask  # (B, A)
     fg_f = fg.to(dt)
-    num_fg = fg_f.sum().clamp(min=1.0)
+    num_fg = fg_f.sum()
+    nb = B
+    if reduce is not None:
+        num_fg, nb = reduce(torch.stack(
+            [num_fg, torch.tensor(B, dtype=dt, device=dev)])).unbind()
+    num_fg = num_fg.clamp(min=1.0)
 
     # the JAX package contracts a one-hot (exact); a gather gives the same
     idx = assign.matched_gt
@@ -222,5 +230,5 @@ def yolox_loss(
 
     total = cfg.iou_weight * loss_iou + loss_obj + loss_cls + loss_l1
     aux = {"iou_loss": loss_iou, "obj_loss": loss_obj, "cls_loss": loss_cls,
-           "l1_loss": loss_l1, "num_fg": fg_f.sum() / B}
+           "l1_loss": loss_l1, "num_fg": fg_f.sum() / nb}
     return total, {k: v.detach() for k, v in aux.items()}

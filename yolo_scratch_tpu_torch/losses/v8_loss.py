@@ -15,7 +15,7 @@ validity mask).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -88,9 +88,16 @@ def v8_detection_loss(
     gt_bboxes: torch.Tensor,  # (B, G, 4) xyxy normalised [0, 1], zero-padded
     gt_mask: torch.Tensor,  # (B, G) bool
     cfg: DetectionLossConfig,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ):
     """Returns (total loss scalar, loss_items (3,) = weighted box/cls/dfl,
-    detached); total is ``loss_items.sum() * batch_size``."""
+    detached); total is ``loss_items.sum() * batch_size``.
+
+    ``reduce`` (a sum over the ranks of a mesh, ``parallel/collectives.py``)
+    makes the batch-wide quantities global: the fallback's fg and GT
+    counts, ``target_scores_sum`` and the batch size. Each rank's total and
+    items are then its share of the global batch's, and their sum over the
+    ranks is the global value."""
     nc, reg_max = cfg.nc, cfg.reg_max
     no = nc + 4 * reg_max
     B = feats[0].shape[0]
@@ -126,14 +133,21 @@ def v8_detection_loss(
     )
 
     # emergency fallback, both branches computed (see the module docstring)
-    use_fallback = (fg_mask.sum() == 0) & (gt_mask.sum() > 0)
     fb = _fallback_assign(pred_bboxes_px.detach(), gt_labels, gt_bboxes_px, gt_mask, nc)
+    num_fg, num_gt = fg_mask.sum(), gt_mask.sum()
+    scores_sum, fb_scores_sum = target_scores.sum(), fb[2].sum()
+    nb = B
+    if reduce is not None:
+        num_fg, num_gt, scores_sum, fb_scores_sum, nb = reduce(torch.stack(
+            [num_fg.to(flat.dtype), num_gt.to(flat.dtype), scores_sum, fb_scores_sum,
+             torch.tensor(B, dtype=flat.dtype, device=flat.device)])).unbind()
+    use_fallback = (num_fg == 0) & (num_gt > 0)
     target_labels, target_bboxes, target_scores, fg_mask = (
         torch.where(use_fallback, f, t) for f, t in zip(
             fb, (target_labels, target_bboxes, target_scores, fg_mask)))
 
     fg_f = fg_mask.to(flat.dtype)
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = torch.where(use_fallback, fb_scores_sum, scores_sum).clamp(min=1.0)
 
     loss_cls = _bce_logits(pred_scores, target_scores).sum() / target_scores_sum
 
@@ -154,5 +168,5 @@ def v8_detection_loss(
 
     loss_items = torch.stack(
         [loss_box * cfg.box_weight, loss_cls * cfg.cls_weight, loss_dfl * cfg.dfl_weight])
-    total = loss_items.sum() * B
+    total = loss_items.sum() * nb
     return total, loss_items.detach()

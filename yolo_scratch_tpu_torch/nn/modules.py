@@ -29,6 +29,7 @@ from torch import nn
 from yolo_scratch_tpu_torch.ops.anchors import make_anchors
 from yolo_scratch_tpu_torch.ops.boxes import dist2bbox
 from yolo_scratch_tpu_torch.ops.int8_conv import int8_conv2d
+from yolo_scratch_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -51,13 +52,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``num_batches_tracked`` stays unused. With ``update_stats`` False a
     train-mode forward leaves the running statistics alone: the step's
     recompute of a checkpointed forward sets it (``train/steps.py``), so
-    that remat updates them once, as ``jax.checkpoint`` does."""
+    that remat updates them once, as ``jax.checkpoint`` does.
+
+    With ``process_group`` set (the sync-BN train step of a mesh sets it
+    for the step, ``train/steps.py``) a train-mode forward normalises over
+    the global batch: the per-channel count, sum and sum of squares, in f32
+    or wider, are summed over the ranks through
+    ``parallel/collectives.py::all_reduce_sum``, so the backward sees the
+    global statistics too. Mean and variance follow flax's
+    ``_compute_stats`` (``E[x²] - E[x]²``, clamped at 0), and the running
+    statistics move toward the global mean and biased variance."""
 
     update_stats = True
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_batch_norm(x)
         if self.update_stats:
             with torch.no_grad():
                 xs = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -66,6 +79,23 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
                 self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch_norm(self, x):
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        C = xs.shape[1]
+        count = torch.full((1,), xs.numel() // C, dtype=xs.dtype, device=xs.device)
+        stats = all_reduce_sum(torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)), count]),
+                               self.process_group)
+        mean = stats[:C] / stats[-1]
+        var = (stats[C:2 * C] / stats[-1] - mean * mean).clamp(min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean.detach(), alpha=1.0 - keep)
+                self.running_var.mul_(keep).add_(var.detach(), alpha=1.0 - keep)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xs - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 #: the int8 buffers of a quantized ``ConvBNAct``

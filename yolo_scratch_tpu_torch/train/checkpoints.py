@@ -14,6 +14,10 @@ weights_only=True)`` reads:
 beside ``<name>.meta.json``: epoch, metrics, bests and any ``extra_meta``,
 with non-finite floats written as null (strict JSON).
 
+Under a mesh (``parallel/mesh.py``) rank 0 alone writes, as the JAX
+package's ``_is_writer``; every rank waits at a barrier after each save and
+reads the same files on resume.
+
 The JAX package's orbax directories are not read here: orbax's format needs
 tensorstore (ROADMAP C5).
 """
@@ -28,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from yolo_scratch_tpu_torch.parallel.distributed import barrier
 
 def _meta_dumps(meta: Dict[str, Any]) -> str:
     """``json.dumps`` with non-finite floats as null. The stdlib emits
@@ -88,13 +93,18 @@ def _write_atomic(path: Path, write) -> None:
 
 class CheckpointManager:
     """Saves ``last`` every epoch and ``best`` on improvement, under
-    ``save_dir``."""
+    ``save_dir``; under a ``mesh`` only its rank 0 writes."""
 
-    def __init__(self, save_dir: str):
+    def __init__(self, save_dir: str, mesh=None):
         self.dir = Path(save_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.is_writer
+        if self.is_writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
 
     def _save(self, name: str, tree: Dict[str, Any], meta: Dict[str, Any]) -> None:
+        if not self.is_writer:
+            return
         _write_atomic(self.dir / f"{name}.pt", lambda p: torch.save(tree, p))
         _write_atomic(self.dir / f"{name}.meta.json", lambda p: p.write_text(_meta_dumps(meta)))
 
@@ -135,6 +145,7 @@ class CheckpointManager:
             meta["best_loss"] = best_loss
             self._save("best", tree, meta)
             saved_best = True
+        barrier(self.mesh)
         return best_loss, best_map50, saved_best
 
     def load_meta(self, name: str = "last") -> Optional[Dict[str, Any]]:

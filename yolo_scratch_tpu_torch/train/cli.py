@@ -7,21 +7,41 @@ Run: ``python -m yolo_scratch_tpu_torch.train.cli --data synthetic --scale n
 The YOLOX recipe: ``--model yolox --scale s --mosaic 1.0 --mixup 1.0
 --final-epochs 15``.
 
-Not ported, raising with its ROADMAP item: ``--mesh`` and ``--multihost``
-(F).
+Data parallel (``parallel/``), one process a rank:
+
+* ``--mesh N`` spawns N ranks on this host, rank r on ``cuda:(r % cards)``
+  (or the CPU with ``--device cpu``). Each loads the same global batch of
+  ``--batch`` images and trains its contiguous rows. The collectives go
+  over NCCL when every rank has a card of its own, else over gloo (ranks
+  sharing a card, or the CPU); the first line printed says which.
+* ``--multihost --coordinator host:port --nproc N --pid i`` (or no
+  coordinator under torchrun) joins a group of N processes; each reads its
+  own slice of the data, ``--batch`` images a step.
+* ``--bn-mode sync`` (default): BN and the loss over the global batch, the
+  one-process step on it. ``--bn-mode local``: the DDP step (BN over each
+  rank's rows, gradients averaged); without a mesh it warns and trains
+  as sync.
+
+Only rank 0 prints and writes; ``main`` returns after every rank has
+joined and raises if any rank failed.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 from yolo_scratch_tpu_torch.data.coco import CocoDataset
 from yolo_scratch_tpu_torch.data.crater import CraterDataset
 from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
 from yolo_scratch_tpu_torch.models.builder import CONFIGS
+from yolo_scratch_tpu_torch.parallel import distributed as D
 
 
 def resolve_train_precision(arg):
@@ -67,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-gt", type=int, default=100, help="static per-image GT capacity")
     p.add_argument("--ema", action="store_true", help="track EMA weights")
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel size (0 = one device; >1 not ported, ROADMAP F)")
+                   help="data-parallel size: ranks spawned on this host (0 = one device)")
     p.add_argument("--multiscale", action="store_true",
                    help="multi-scale training over bucketed sizes {0.75, 0.875, 1, 1.125}*imgsz")
     p.add_argument("--bf16", action="store_true",
@@ -82,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accumulate gradients over k microbatches per step "
                         "(--batch must be divisible by k)")
     p.add_argument("--bn-mode", type=str, default="sync", choices=["sync", "local"],
-                   help="BatchNorm under --mesh (ROADMAP F)")
+                   help="BatchNorm under --mesh: global-batch sync-BN or DDP per-replica")
     p.add_argument("--augment", action="store_true",
                    help="device-side augmentation (hflip + color jitter)")
     p.add_argument("--mosaic", type=float, default=0.0,
@@ -91,8 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mixup probability, applied after mosaic (YOLOX recipe; implies "
                         "--augment)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported, ROADMAP F)")
-    p.add_argument("--coordinator", type=str, default=None)
+                   help="multi-process training: join a torch.distributed group "
+                        "(--coordinator/--nproc/--pid, or torchrun's environment), "
+                        "each process on its own slice of the data")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="rendezvous host:port (or a tcp:// or file:// URL)")
     p.add_argument("--nproc", type=int, default=None)
     p.add_argument("--pid", type=int, default=None)
     p.add_argument("--final-epochs", type=int, default=0,
@@ -132,20 +155,54 @@ def make_datasets(args):
     return ds, 3, len(ds.class_names) or 80
 
 
-def _check_ported(args) -> None:
-    if args.multihost or args.mesh > 1:
-        raise NotImplementedError("--mesh / --multihost: multi-GPU training is not ported "
-                                  "(ROADMAP F)")
-
-
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
 
     if args.grad_accum < 1 or args.batch % args.grad_accum:
         raise SystemExit(f"--batch {args.batch} must be a positive multiple of "
                          f"--grad-accum {args.grad_accum}")
-    _check_ported(args)
+    if args.multihost:
+        D.initialize(args.coordinator, args.nproc, args.pid)
+        try:
+            rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            mesh = D.make_global_mesh(D.rank_device(rank, args.device), process_local=True)
+            D.barrier(mesh)  # every process joined before the heavy work
+            if mesh.is_writer:
+                print(f"multihost: {mesh.size} processes over {D.mesh_transport(mesh)}, "
+                      f"devices {' '.join(map(str, mesh.devices))}")
+            return _train(args, mesh)
+        finally:
+            dist.destroy_process_group()
+    if args.mesh > 1:
+        if args.batch % (args.mesh * args.grad_accum):
+            raise SystemExit(f"--batch {args.batch} must be a multiple of --mesh {args.mesh} "
+                             f"x --grad-accum {args.grad_accum}")
+        devices = D.device_map(args.mesh, args.device)
+        print(f"mesh: {args.mesh} ranks over {D.transport(devices)}, devices "
+              f"{' '.join(map(str, devices))}")
+        with tempfile.TemporaryDirectory() as rdv:
+            ranks = D.spawn_ranks(_mesh_rank, args.mesh, (argv, f"file://{rdv}/rendezvous"))
+        return {**ranks[0]["fit"], "ranks": ranks}
+    return _train(args, None)
 
+
+def _mesh_rank(rank: int, argv, init_method: str) -> dict:
+    """One rank of ``--mesh``: join the group, train, and return the fit's
+    result with this process's kernel #1/#2 launch counts."""
+    from yolo_scratch_tpu_torch.ops import nms_kernels
+
+    args = build_parser().parse_args(argv)
+    D.initialize(init_method, args.mesh, rank)
+    mesh = D.make_global_mesh(D.rank_device(rank, args.device))
+    D.barrier(mesh)
+    fit = _train(args, mesh)
+    return {"rank": rank, "fit": fit, "launches": dict(nms_kernels.launches)}
+
+
+def _train(args, mesh):
+    """Datasets, loaders, model and Trainer of ``args``; on a mesh this
+    process is one rank (rank 0 alone prints)."""
     from yolo_scratch_tpu_torch.data.augment import AugmentConfig
     from yolo_scratch_tpu_torch.data.loader import Loader
     from yolo_scratch_tpu_torch.models.builder import build_yolo11
@@ -153,21 +210,30 @@ def main(argv=None):
     from yolo_scratch_tpu_torch.train.trainer import Trainer, TrainerConfig
     from yolo_scratch_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    say = print if mesh is None or mesh.is_writer else (lambda *a, **k: None)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     ds, ch, nc = make_datasets(args)
     n = len(ds)
     # seeded split (the reference's torch.randperm(seed=42), with a numpy PRNG)
     idx = np.random.RandomState(args.seed).permutation(n)
     n_val = int(n * args.val_split)
     train_idx, val_idx = idx[: n - n_val], idx[n - n_val:]
-    print(f"Train samples: {len(train_idx)}, Val samples: {len(val_idx)}")
+    if mesh is not None and mesh.process_local:
+        # this process's slice, trimmed so every process steps the same
+        # number of batches (each step is a collective)
+        k_t, k_v = len(train_idx) // mesh.size, len(val_idx) // mesh.size
+        if k_t == 0:
+            raise ValueError(f"{len(train_idx)} train samples < {mesh.size} processes")
+        train_idx = train_idx[D.process_slice(len(train_idx))][:k_t]
+        val_idx = val_idx[D.process_slice(len(val_idx))][:k_v]
+    say(f"Train samples: {len(train_idx)}, Val samples: {len(val_idx)}")
 
     ms_sizes = None
     if args.multiscale:
         # bucketed static shapes; each bucket divisible by 32 (P5 stride)
         ms_sizes = sorted({max(32, int(args.imgsz * f) // 32 * 32)
                            for f in (0.75, 0.875, 1.0, 1.125)})
-        print(f"multi-scale buckets: {ms_sizes}")
+        say(f"multi-scale buckets: {ms_sizes}")
     train_loader = Loader(ds, args.batch, max_gt=args.max_gt, shuffle=True, seed=args.seed,
                           indices=train_idx, prefetch=args.workers, workers=args.workers,
                           multiscale_sizes=ms_sizes)
@@ -178,12 +244,12 @@ def main(argv=None):
     if args.model == "yolox":
         yx = scale_name(args.scale)
         model = build_yolox(yx, nc=nc, ch=ch, seed=args.seed, device=dev)
-        print(f"Building YOLOX-{yx} nc={nc} ch={ch} strides={model.strides} on {dev}")
+        say(f"Building YOLOX-{yx} nc={nc} ch={ch} strides={model.strides} on {dev}")
     else:
         model = build_yolo11(args.cfg, ch=ch, nc=nc, scale=args.scale, seed=args.seed,
                              device=dev)
-        print(f"Building {Path(args.cfg).name} scale={args.scale} nc={nc} ch={ch} "
-              f"strides={model.strides} on {dev}")
+        say(f"Building {Path(args.cfg).name} scale={args.scale} nc={nc} ch={ch} "
+            f"strides={model.strides} on {dev}")
 
     aug_cfg = None
     if args.augment or args.mosaic > 0 or args.mixup > 0:
@@ -209,10 +275,10 @@ def main(argv=None):
         patience=args.patience,
     )
     try:
-        trainer = Trainer(model, train_loader, val_loader, cfg, seed=args.seed,
+        trainer = Trainer(model, train_loader, val_loader, cfg, mesh=mesh, seed=args.seed,
                           model_kind=args.model)
         total = sum(p.numel() for p in model.parameters())
-        print(f"Total parameters: {total:,} ({total / 1e6:.2f}M)")
+        say(f"Total parameters: {total:,} ({total / 1e6:.2f}M)")
         return trainer.fit(resume=args.resume)
     finally:
         train_loader.close()

@@ -26,6 +26,7 @@ fetches.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
@@ -37,26 +38,34 @@ from yolo_scratch_tpu_torch.nn.modules import BatchNorm2d
 from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig, yolox_loss
 from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.ops.matching import batched_tp_marks
+from yolo_scratch_tpu_torch.parallel.collectives import (
+    all_reduce_flat,
+    all_reduce_grads,
+    all_reduce_sum,
+    broadcast_flat,
+)
 from yolo_scratch_tpu_torch.train.state import ema_state_dict
 
 
 def v8_loss_adapter(loss_cfg: DetectionLossConfig):
-    """feats + batch -> (total, metrics dict) for the v8 (YOLO11) loss."""
+    """feats + batch -> (total, metrics dict) for the v8 (YOLO11) loss;
+    ``reduce`` as in ``v8_detection_loss`` (the steps of a mesh pass it)."""
 
-    def fn(feats, batch):
+    def fn(feats, batch, reduce=None):
         total, items = v8_detection_loss(
-            feats, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"], loss_cfg)
+            feats, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"], loss_cfg, reduce)
         return total, {"box_loss": items[0], "cls_loss": items[1], "dfl_loss": items[2]}
 
     return fn
 
 
 def yolox_loss_adapter(loss_cfg: YOLOXLossConfig):
-    """feats + batch -> (total, metrics dict) for the YOLOX (SimOTA) loss."""
+    """feats + batch -> (total, metrics dict) for the YOLOX (SimOTA) loss;
+    ``reduce`` as in ``yolox_loss``."""
 
-    def fn(feats, batch):
+    def fn(feats, batch, reduce=None):
         return yolox_loss(feats, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"],
-                          loss_cfg)
+                          loss_cfg, reduce)
 
     return fn
 
@@ -93,17 +102,29 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str,
 
 
 @contextlib.contextmanager
-def frozen_bn_stats(model: torch.nn.Module) -> Iterator[None]:
-    """Train-mode forwards inside leave every BN's running statistics alone
-    (the recompute of a checkpointed forward)."""
+def _bn_setting(model: torch.nn.Module, name: str, value) -> Iterator[None]:
+    """Every ``BatchNorm2d`` of ``model`` with ``name`` set to ``value``
+    inside; its class default again after."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     for m in bns:
-        m.update_stats = False
+        setattr(m, name, value)
     try:
         yield
     finally:
         for m in bns:
-            m.update_stats = True
+            delattr(m, name)
+
+
+def frozen_bn_stats(model: torch.nn.Module):
+    """Train-mode forwards inside leave every BN's running statistics alone
+    (the recompute of a checkpointed forward)."""
+    return _bn_setting(model, "update_stats", False)
+
+
+def bn_buffers(model: torch.nn.Module) -> list:
+    """Every BN's running mean and variance."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm2d)
+            for t in (m.running_mean, m.running_var)]
 
 
 class TrainStep:
@@ -112,22 +133,48 @@ class TrainStep:
     returned; ``metrics`` holds ``loss`` and the loss function's items as
     0-d device tensors (no host sync).
 
+    With a ``mesh`` (``parallel/mesh.py``) each rank calls the step with its
+    own rows of the global batch. ``bn_mode="sync"``: BN normalises over
+    the global batch (the mesh's group on every ``BatchNorm2d`` for the
+    step), the loss takes ``reduce=`` (the batch-wide normalisers summed
+    over the ranks) and the gradients, loss and metrics are summed over the
+    ranks: the one-process step on the global batch. ``bn_mode="local"``:
+    BN and the loss on the rank's own rows; gradients, loss and metrics
+    averaged over the ranks; the BN running statistics averaged
+    (``sync_bn_stats``) or rank 0's.
+
     ``on_phase``, when set, is called with each phase's name as the phase
     ends: ``"h2d"``, ``"augment"`` when the call augments, then
     ``"forward"``, ``"loss"`` and ``"backward"`` for each microbatch, then
-    ``"clip_adamw_ema"``. A profiler records a CUDA event there to time the
-    step's own phases."""
+    ``"all_reduce"`` on a mesh, then ``"clip_adamw_ema"``. A profiler
+    records a CUDA event there to time the step's own phases."""
 
     on_phase: Optional[Callable[[str], None]] = None
 
     def __init__(self, model, loss_fn, compute_dtype=None, remat=False, grad_accum=1,
-                 matmul_precision=None):
+                 matmul_precision=None, mesh=None, bn_mode="sync", sync_bn_stats=True):
+        if bn_mode not in ("sync", "local"):
+            raise ValueError(f"bn_mode={bn_mode!r}: 'sync' or 'local'")
+        if mesh is not None and mesh.group is None:
+            raise ValueError("a train step's mesh needs a process group: one process a rank "
+                             "(parallel/distributed.py::make_global_mesh)")
+        if mesh is not None and bn_mode == "local" and grad_accum > 1:
+            raise ValueError("grad_accum>1 is supported on the sync-BN mesh step, not the "
+                             "DDP (bn_mode='local') step")
         self.model = model
         self.loss_fn = loss_fn
         self.compute_dtype = compute_dtype
         self.remat = remat
         self.grad_accum = grad_accum
         self.precision = matmul_precision
+        self.mesh = mesh
+        self.bn_mode = bn_mode
+        self.sync_bn_stats = sync_bn_stats
+        sync = mesh is not None and bn_mode == "sync"
+        # a one-rank group normalises over its own batch: plain BN is that
+        self.bn_group = mesh.group if sync and mesh.size > 1 else None
+        self.loss_kwargs = ({"reduce": functools.partial(all_reduce_sum, group=mesh.group)}
+                            if sync else {})
 
     def forward(self, img: torch.Tensor):
         """Train-mode forward of an NHWC device batch -> raw maps in the
@@ -158,7 +205,7 @@ class TrainStep:
         add into ``.grad``."""
         feats = self.forward(batch["img"])
         self._mark("forward")
-        total, metrics = self.loss_fn(feats, batch)
+        total, metrics = self.loss_fn(feats, batch, **self.loss_kwargs)
         self._mark("loss")
         total.backward()
         self._mark("backward")
@@ -175,39 +222,65 @@ class TrainStep:
         for p in params:
             p.grad = None
         k = self.grad_accum
-        if k == 1:
-            return self._micro(batch)
-        loss, metrics = None, None
-        for i in range(k):
-            l_i, m_i = self._micro({key: v[i::k] for key, v in batch.items()})
-            if loss is None:
-                loss, metrics = l_i, m_i
-            else:
-                loss = loss + l_i
-                metrics = {key: metrics[key] + m_i[key] for key in metrics}
+        with (contextlib.nullcontext() if self.bn_group is None
+              else _bn_setting(self.model, "process_group", self.bn_group)):
+            if k == 1:
+                return self._micro(batch)
+            loss, metrics = None, None
+            for i in range(k):
+                l_i, m_i = self._micro({key: v[i::k] for key, v in batch.items()})
+                if loss is None:
+                    loss, metrics = l_i, m_i
+                else:
+                    loss = loss + l_i
+                    metrics = {key: metrics[key] + m_i[key] for key in metrics}
         with torch.no_grad():
             torch._foreach_mul_([p.grad for p in params], 1.0 / k)
         return loss * (1.0 / k), {key: v * (1.0 / k) for key, v in metrics.items()}
 
+    def reduce_across(self, loss: torch.Tensor, metrics: Dict) -> Tuple[torch.Tensor, Dict]:
+        """The mesh's reductions after :meth:`grads`: gradients, loss and
+        metrics summed (sync) or averaged (local) over the ranks, and in
+        local mode the BN running statistics averaged or rank 0's."""
+        mesh, group = self.mesh, self.mesh.group
+        n = mesh.size if self.bn_mode == "local" else 1
+        all_reduce_grads(list(self.model.parameters()), group, divide=n)
+        vals = all_reduce_sum(torch.stack([loss, *metrics.values()]), group)
+        if n != 1:
+            vals = vals / n
+            if self.sync_bn_stats:
+                all_reduce_flat(bn_buffers(self.model), group, divide=n)
+            else:
+                broadcast_flat(bn_buffers(self.model), group)
+        return vals[0], dict(zip(metrics, vals[1:]))
+
     def __call__(self, state, batch: Mapping[str, Any],
-                 augment: Optional[Callable[[Dict[str, torch.Tensor]], Dict]] = None):
+                 augment: Optional[Callable[[Dict[str, torch.Tensor]], Dict]] = None,
+                 rows: Optional[slice] = None):
         """One step. ``augment``, when given, maps the device batch before
-        the forward (``data/augment.py::augment_batch``)."""
+        the forward (``data/augment.py::augment_batch``); ``rows`` then
+        takes this rank's rows of the augmented global batch."""
         device = next(self.model.parameters()).device
         b = batch_to_device(batch, device)
         self._mark("h2d")
         if augment is not None:
             b = augment(b)
             self._mark("augment")
+        if rows is not None:
+            b = {k: v[rows] for k, v in b.items()}
         with precision_scope(self.precision):
             loss, metrics = self.grads(b)
+            if self.mesh is not None:
+                loss, metrics = self.reduce_across(loss, metrics)
+                self._mark("all_reduce")
             state.apply_gradients([p.grad for p in self.model.parameters()])
         self._mark("clip_adamw_ema")
         return state, {"loss": loss, **metrics}
 
 
 def build_train_step_custom(model, loss_fn, compute_dtype=None, remat: bool = False,
-                            grad_accum: int = 1, matmul_precision=None) -> TrainStep:
+                            grad_accum: int = 1, matmul_precision=None, mesh=None,
+                            bn_mode: str = "sync", sync_bn_stats: bool = True) -> TrainStep:
     """The train step of ``model`` with ``loss_fn(feats, batch) -> (total,
     metrics)``.
 
@@ -217,8 +290,11 @@ def build_train_step_custom(model, loss_fn, compute_dtype=None, remat: bool = Fa
     ``remat=True``: ``torch.utils.checkpoint`` (non-reentrant) of the whole
     forward, activations recomputed in backward. ``grad_accum=k``: see
     :meth:`TrainStep.grads`. ``matmul_precision``: :func:`precision_scope`
-    for the whole step."""
-    return TrainStep(model, loss_fn, compute_dtype, remat, grad_accum, matmul_precision)
+    for the whole step. ``mesh``, ``bn_mode``, ``sync_bn_stats``: the
+    data-parallel step of :class:`TrainStep` (``parallel/mesh.py`` builds
+    it)."""
+    return TrainStep(model, loss_fn, compute_dtype, remat, grad_accum, matmul_precision, mesh,
+                     bn_mode, sync_bn_stats)
 
 
 class EvalStep:
@@ -234,11 +310,19 @@ class EvalStep:
     ``sample_valid``, whose above-conf candidates exceed
     ``pre_nms_topk``). Detections are
     (B, max_det, ...) rows in normalised xyxy, score-descending, with a
-    validity mask. Marks are (B, T, max_det) bool."""
+    validity mask. Marks are (B, T, max_det) bool.
+
+    With a ``mesh`` each rank calls the step with its own rows: detections
+    and marks are the rank's (kernel #1 sweeps on every rank), and the
+    metrics are the global batch's on every rank (the loss's batch-wide
+    normalisers and the metrics summed over the ranks)."""
 
     def __init__(self, model, loss_fn, conf_threshold, iou_threshold, max_det, pre_nms_topk,
-                 match_thresholds, per_class, matmul_precision, use_ema=False, decode_fn=None):
+                 match_thresholds, per_class, matmul_precision, use_ema=False, decode_fn=None,
+                 mesh=None):
         self.model = model
+        self.reduce = (None if mesh is None
+                       else functools.partial(all_reduce_sum, group=mesh.group))
         self.use_ema = use_ema
         self.loss_fn = loss_fn
         self.decode_fn = decode_fn
@@ -291,18 +375,28 @@ class EvalStep:
         return (*dets, (decoded[..., 4:].amax(dim=-1) > self.conf_threshold).sum(dim=-1))
 
     def _outputs(self, feats, batch):
-        total, items = self.loss_fn(feats, batch)
+        if self.reduce is None:
+            total, items = self.loss_fn(feats, batch)
+        else:
+            total, items = self.loss_fn(feats, batch, reduce=self.reduce)
         boxes, scores, labels, valid, cand = self.detections(feats, batch["img"].shape[1])
         # share of REAL images whose candidates exceed the cap: the loader
         # wrap-pads the final short batch with duplicates, which must not count
         sat = (cand > self.pre_nms_topk).to(torch.float32)
         sv = batch.get("sample_valid")
-        if sv is not None:
+        metrics = {"loss": total, **items}
+        if self.reduce is not None:
+            svf = torch.ones_like(sat) if sv is None else sv.to(torch.float32)
+            vals = self.reduce(torch.stack([*metrics.values(), (sat * svf).sum().to(total.dtype),
+                                            svf.sum().to(total.dtype)]))
+            metrics = dict(zip(metrics, vals[:-2]))
+            sat_frac = vals[-2] / vals[-1].clamp(min=1.0)
+        elif sv is not None:
             svf = sv.to(torch.float32)
             sat_frac = (sat * svf).sum() / svf.sum().clamp(min=1.0)
         else:
             sat_frac = sat.mean()
-        metrics = {"loss": total, **items, "prefilter_saturated": sat_frac}
+        metrics["prefilter_saturated"] = sat_frac
         dets = (boxes, scores, labels, valid)
         if self.match_thresholds is None:
             return metrics, dets
@@ -326,7 +420,8 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
                    conf_threshold: float = 0.25, iou_threshold: float = 0.45,
                    max_det: int = 300, pre_nms_topk: int = 2048, use_ema: bool = False,
                    loss_fn=None, decode_fn=None, match_thresholds=None,
-                   per_class: bool = False, matmul_precision: str | None = "highest") -> EvalStep:
+                   per_class: bool = False, matmul_precision: str | None = "highest",
+                   mesh=None) -> EvalStep:
     """The eval step of ``model`` on the model's device.
 
     The reference NMSes every above-conf anchor; fixed shapes force a
@@ -341,11 +436,12 @@ def make_eval_step(model, loss_cfg: DetectionLossConfig | None = None,
     ``loss_cfg``; ``decode_fn`` (maps -> (B, A, 4+nc) xywh pixels and
     scores) replaces the fused select-then-decode with itself and the
     common ``postprocess``. YOLOX passes both (``yolox_loss_adapter``,
-    ``yolox_eval_decode``)."""
+    ``yolox_eval_decode``). ``mesh``: the data-parallel eval step of
+    :class:`EvalStep`."""
     if loss_fn is None:
         if loss_cfg is None:
             loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides,
                                            reg_max=model.reg_max)
         loss_fn = v8_loss_adapter(loss_cfg)
     return EvalStep(model, loss_fn, conf_threshold, iou_threshold, max_det, pre_nms_topk,
-                    match_thresholds, per_class, matmul_precision, use_ema, decode_fn)
+                    match_thresholds, per_class, matmul_precision, use_ema, decode_fn, mesh)

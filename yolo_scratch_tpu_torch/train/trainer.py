@@ -11,13 +11,27 @@ loss on). Validation runs the eval step with device TP marks and NMS kernel
 ``val_fetch_chunk`` batches; only the AP accumulation runs on the host.
 
 ``model_kind``: ``"yolo11"`` (v8 loss, fused DFL decode) or ``"yolox"``
-(SimOTA loss, ``yolox_eval_decode``). Not ported here, raising with its
-ROADMAP item: a ``mesh`` and ``bn_mode="local"`` (F).
+(SimOTA loss, ``yolox_eval_decode``).
+
+With a ``mesh`` (``parallel/``: one process a rank, the model on the rank's
+device) every rank runs this loop. At start rank 0's parameters, BN
+buffers, EMA and optimiser state are broadcast. Each train batch is the
+global batch (augmented whole, with the shared generator, so a mosaic may
+draw another rank's rows) of which the rank trains its contiguous rows; on
+a ``process_local`` mesh (``--multihost``) each process loads its own rows,
+and the global batch is gathered only to augment it. ``bn_mode="sync"``
+trains as one process on the global batch would; ``"local"`` is the DDP
+step (``train/steps.py::TrainStep``). Validation runs the eval step on the
+rank's rows (kernel #1 sweeps on every rank) and gathers the marks, scores
+and valid flags (the detections too with host matching) in rank order, so
+every rank computes the one-process metrics. Rank 0 alone writes
+checkpoints and logs and prints; every rank reads a checkpoint on resume.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -29,10 +43,14 @@ from yolo_scratch_tpu_torch.data.augment import augment_batch, batch_generator
 from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.models.yolox import yolox_eval_decode
+from yolo_scratch_tpu_torch.parallel.collectives import all_gather_cat
+from yolo_scratch_tpu_torch.parallel.distributed import barrier
+from yolo_scratch_tpu_torch.parallel.mesh import replicate, shard_batch, state_tensors
 from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
 from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
 from yolo_scratch_tpu_torch.train.state import create_train_state
 from yolo_scratch_tpu_torch.train.steps import (
+    batch_to_device,
     build_train_step_custom,
     make_eval_step,
     v8_loss_adapter,
@@ -80,7 +98,7 @@ class TrainerConfig:
     # TF32 off here, as "highest" does (train/steps.py::precision_scope);
     # None leaves the backend flags alone
     train_matmul_precision: Optional[str] = "high"
-    bn_mode: str = "sync"  # 'local' (DDP per-replica BN): ROADMAP F
+    bn_mode: str = "sync"  # 'sync' (global-batch BN) | 'local' (DDP per-replica)
     # final no-aug phase (the YOLOX recipe): the last N epochs train with
     # augmentation off, and for YOLOX with the L1 loss on. 0 disables it.
     final_epochs: int = 0
@@ -103,16 +121,28 @@ class Trainer:
                  model_kind: str = "yolo11"):
         """Trains ``model`` in place, on the model's device. The model comes
         initialised (the CLI seeds it) and the loaders carry their own
-        seeds; ``seed`` + 1 seeds the augmentation, as in the JAX package."""
-        if mesh is not None or config.bn_mode == "local":
-            raise NotImplementedError("mesh / bn_mode='local': multi-GPU training is not "
-                                      "ported (ROADMAP F)")
+        seeds; ``seed`` + 1 seeds the augmentation, as in the JAX package.
+        ``mesh``: data-parallel training, this process one rank of it."""
         if model_kind not in ("yolo11", "yolox"):
             raise ValueError(f"model_kind={model_kind!r}: 'yolo11' or 'yolox'")
+        if config.bn_mode not in ("sync", "local"):
+            raise ValueError(f"bn_mode={config.bn_mode!r}: 'sync' or 'local'")
+        if mesh is None and config.bn_mode == "local":
+            warnings.warn("bn_mode='local' has no effect without a mesh — training uses "
+                          "single-device BN (identical to 'sync' at mesh size 1)", stacklevel=2)
+        if mesh is not None:
+            if next(model.parameters()).device != mesh.device:
+                raise ValueError(f"the model is on {next(model.parameters()).device}, this "
+                                 f"rank's device is {mesh.device}")
+            if mesh.process_local and not config.device_matching:
+                raise ValueError("multi-process meshes require device_matching=True (host-side "
+                                 "greedy matching cannot see other processes' targets)")
         self.model = model
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = config
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.is_writer
         self.aug_seed = seed + 1
         self.loss_cfg = DetectionLossConfig(nc=model.nc, strides=model.strides)
         loss_fn = v8_loss_adapter(self.loss_cfg)
@@ -139,6 +169,8 @@ class Trainer:
         if config.pretrained:
             self._apply_pretrained(config.pretrained)
         self.state = create_train_state(model, tx, use_ema=config.use_ema)
+        if mesh is not None:
+            replicate(state_tensors(self.state), mesh)
         self._train_step = self._build_step(loss_fn)
         # built at the phase change, so a run that never reaches it pays nothing
         self._train_step_final = None
@@ -154,11 +186,11 @@ class Trainer:
             pre_nms_topk=config.pre_nms_topk, use_ema=config.eval_with_ema,
             loss_fn=eval_loss_fn, decode_fn=decode_fn,
             match_thresholds=self._match_thresholds,
-            matmul_precision=config.val_matmul_precision)
+            matmul_precision=config.val_matmul_precision, mesh=mesh)
 
-        self.ckpt = CheckpointManager(config.save_dir) if config.save_dir else None
+        self.ckpt = CheckpointManager(config.save_dir, mesh) if config.save_dir else None
         self.logger = None
-        if config.save_dir:
+        if config.save_dir and self.is_writer:
             from yolo_scratch_tpu_torch.utils.logging import JsonlWriter, MetricsLogger
 
             self.logger = MetricsLogger(
@@ -175,7 +207,11 @@ class Trainer:
         return build_train_step_custom(
             self.model, loss_fn, compute_dtype=torch.bfloat16 if cfg.mixed_precision else None,
             remat=cfg.remat, grad_accum=cfg.grad_accum,
-            matmul_precision=cfg.train_matmul_precision)
+            matmul_precision=cfg.train_matmul_precision, mesh=self.mesh, bn_mode=cfg.bn_mode)
+
+    def _say(self, msg: str) -> None:
+        if self.is_writer:
+            print(msg)
 
     def _apply_pretrained(self, path: str) -> None:
         """Overlay pretrained weights onto the model (the reference's
@@ -198,16 +234,17 @@ class Trainer:
         names = {n for n, _ in self.model.named_parameters()}
         skipped_p = [k for k in skipped if k in names]
         total = len(names)
-        print(f"pretrained: loaded {path} ({total - len(skipped_p)}/{total} parameters; "
-              f"{len(skipped)} kept init: {', '.join(skipped[:4])}"
-              f"{'...' if len(skipped) > 4 else ''})"
-              if skipped else f"pretrained: loaded {path} (all {total} parameters)")
+        self._say(f"pretrained: loaded {path} ({total - len(skipped_p)}/{total} parameters; "
+                  f"{len(skipped)} kept init: {', '.join(skipped[:4])}"
+                  f"{'...' if len(skipped) > 4 else ''})"
+                  if skipped else f"pretrained: loaded {path} (all {total} parameters)")
 
     # ------------------------------------------------------------------
 
     def resume(self) -> bool:
         if self.ckpt is None:
             return False
+        barrier(self.mesh)  # every rank reads what rank 0 wrote
         self.state, self.start_epoch, self.best_loss, self.best_map50 = self.ckpt.try_resume(
             self.state)
         if self.start_epoch > 0:
@@ -223,6 +260,24 @@ class Trainer:
         """The last ``final_epochs`` epochs: augmentation off (and the L1
         loss on for YOLOX), the YOLOX paper's no-aug end phase."""
         return self.cfg.final_epochs > 0 and epoch >= self.cfg.epochs - self.cfg.final_epochs
+
+    def _place(self, batch, augmented: bool):
+        """(batch, rows) for the train step: without a mesh the batch as it
+        is. On a mesh, unaugmented, this rank's rows of the global batch
+        (a process-local batch is those rows already). Augmented, the global
+        batch (gathered on the device from every process when each loads
+        its own rows) and the slice of this rank's rows, to take after the
+        augmentation."""
+        mesh = self.mesh
+        if mesh is None:
+            return batch, None
+        if not augmented:
+            return shard_batch(batch, mesh), None
+        if mesh.process_local:
+            local = batch_to_device(batch, mesh.device)
+            batch = {k: all_gather_cat(v, mesh.group, mesh.size) for k, v in local.items()}
+        b = len(batch["img"]) // mesh.size
+        return batch, slice(mesh.rank * b, (mesh.rank + 1) * b)
 
     def augmenter(self, epoch: int, batch_index: int):
         """The device-batch augmentation of one train batch, or None (no
@@ -243,8 +298,13 @@ class Trainer:
             step_fn = self._train_step_final
         collected = []  # device tensors; fetched once at epoch end (no per-step sync)
         for bi, batch in enumerate(self.train_loader):
-            images += batch["img"].shape[0]
-            self.state, metrics = step_fn(self.state, batch, augment=self.augmenter(epoch, bi))
+            images += len(batch["img"]) * (self.mesh.size if self.mesh is not None
+                                           and self.mesh.process_local else 1)
+            augment = self.augmenter(epoch, bi)
+            batch, rows = self._place(batch, augment is not None)
+            self.state, metrics = (
+                step_fn(self.state, batch, augment=augment) if rows is None
+                else step_fn(self.state, batch, augment=augment, rows=rows))
             collected.append(metrics)
         out: Dict[str, float] = {}
         if collected:
@@ -265,26 +325,40 @@ class Trainer:
         all_marks, all_scores, all_valid = [], [], []  # device-matching path
         n_gt = 0
         metric_accum = []  # device scalar dicts, fetched stacked at the end
-        deferred = []      # (device tensors..., sv[, targets]) per batch
+        # per batch, this rank's rows: (marks, scores, valid, sample_valid,
+        # gt_mask) with device matching, else (boxes, scores, labels, valid,
+        # sample_valid, gt_labels, gt_bboxes, gt_mask)
+        deferred = []
+        mesh = self.mesh
+
+        def fetch(items):
+            """Per-batch tensors or arrays -> (batches, B, ...) numpy; on a
+            mesh every rank's rows, in rank order, on every rank."""
+            x = torch.stack([torch.as_tensor(t) for t in items])
+            if mesh is not None:
+                x = all_gather_cat(x.to(mesh.device), mesh.group, mesh.size, dim=1)
+            return x.cpu().numpy()
 
         def flush_deferred():
             """Stacked fetch of the deferred batches, one transfer per kind."""
+            nonlocal n_gt
             if not deferred:
                 return
-            if self._match_thresholds is not None:
-                marks_h, scores_h, valid_h = (
-                    torch.stack([d[i] for d in deferred]).cpu().numpy() for i in range(3))
-                for i, d in enumerate(deferred):
-                    sv = d[3]
-                    all_marks.append(marks_h[i][sv])
-                    all_scores.append(scores_h[i][sv])
-                    all_valid.append(valid_h[i][sv])
-            else:
-                boxes_h, scores_h, labels_h, valid_h = (
-                    torch.stack([d[i] for d in deferred]).cpu().numpy() for i in range(4))
-                for i, d in enumerate(deferred):
-                    sv, targets = d[4], d[5]
-                    preds = detections_to_lists(boxes_h[i], scores_h[i], labels_h[i], valid_h[i])
+            cols = [fetch([d[i] for d in deferred]) for i in range(len(deferred[0]))]
+            for i in range(len(deferred)):
+                # score each val image once: drop the loader's wrap-padding duplicates
+                if self._match_thresholds is not None:
+                    marks, scores, valid, sv, gt_mask = (c[i] for c in cols)
+                    sv = sv.astype(bool)
+                    all_marks.append(marks[sv])
+                    all_scores.append(scores[sv])
+                    all_valid.append(valid[sv])
+                    n_gt += int(gt_mask[sv].sum())
+                else:
+                    boxes, scores, labels, valid, sv, gt_labels, gt_bboxes, gt_mask = (
+                        c[i] for c in cols)
+                    preds = detections_to_lists(boxes, scores, labels, valid)
+                    targets = targets_to_lists(gt_labels, gt_bboxes, gt_mask)
                     all_preds.extend(p for p, ok in zip(preds, sv) if ok)
                     all_targets.extend(t for t, ok in zip(targets, sv) if ok)
             deferred.clear()
@@ -292,19 +366,17 @@ class Trainer:
         for batch in self.val_loader:
             if self.cfg.max_val_batches is not None and n >= self.cfg.max_val_batches:
                 break
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
             out_step = self._eval_step(batch, self.state)
             metrics, (boxes, scores, labels, valid) = out_step[0], out_step[1]
             metric_accum.append(metrics)
-            # score each val image once: drop the loader's wrap-padding duplicates
-            B = batch["img"].shape[0]
-            sv = np.asarray(batch.get("sample_valid", np.ones(B, bool)))
+            sv = np.asarray(batch.get("sample_valid", np.ones(len(batch["img"]), bool)))
             if self._match_thresholds is not None:
-                deferred.append((out_step[2], scores, valid, sv))
-                n_gt += int(np.asarray(batch["gt_mask"])[sv].sum())
+                deferred.append((out_step[2], scores, valid, sv, batch["gt_mask"]))
             else:
-                targets = targets_to_lists(batch["gt_labels"], batch["gt_bboxes"],
-                                           batch["gt_mask"])
-                deferred.append((boxes, scores, labels, valid, sv, targets))
+                deferred.append((boxes, scores, labels, valid, sv, batch["gt_labels"],
+                                 batch["gt_bboxes"], batch["gt_mask"]))
             if len(deferred) >= max(self.cfg.val_fetch_chunk, 1):
                 flush_deferred()
             n += 1
@@ -329,9 +401,9 @@ class Trainer:
         if out.get("prefilter_saturated", 0.0) > 0:
             # the cap dropped real candidates on some images: the mAP is an
             # under-estimate against an uncapped evaluator
-            print(f"  ! prefilter cap (pre_nms_topk={self.cfg.pre_nms_topk}) "
-                  f"bound on ~{out['prefilter_saturated']:.0%} of val images "
-                  "— raise it for exact eval")
+            self._say(f"  ! prefilter cap (pre_nms_topk={self.cfg.pre_nms_topk}) "
+                      f"bound on ~{out['prefilter_saturated']:.0%} of val images "
+                      "— raise it for exact eval")
         return out
 
     def fit(self, resume: bool = True) -> Dict[str, Any]:
@@ -350,8 +422,8 @@ class Trainer:
             lr = float(self.schedule(epoch * max(len(self.train_loader), 1)))
             if self._in_final_phase(epoch) and not self._in_final_phase(epoch - 1):
                 extra = " + L1 loss on" if self._loss_fn_final is not None else ""
-                print(f"--> final phase: augmentation off{extra} (last "
-                      f"{self.cfg.final_epochs} epochs)")
+                self._say(f"--> final phase: augmentation off{extra} (last "
+                          f"{self.cfg.final_epochs} epochs)")
             train_metrics = self.train_epoch(epoch)
             val_metrics = self.validate()
 
@@ -361,15 +433,15 @@ class Trainer:
                                                 ("obj", "obj_loss"), ("cls", "cls_loss"),
                                                 ("dfl", "dfl_loss"), ("l1", "l1_loss"))
                              if key in train_metrics)
-            print(f"Epoch {epoch + 1}/{self.cfg.epochs} | lr {lr:.6f} | "
-                  f"train loss {train_metrics.get('loss', float('nan')):.4f} ({parts}) | "
-                  f"{train_metrics.get('imgs_per_sec', 0):.1f} img/s")
+            self._say(f"Epoch {epoch + 1}/{self.cfg.epochs} | lr {lr:.6f} | "
+                      f"train loss {train_metrics.get('loss', float('nan')):.4f} ({parts}) | "
+                      f"{train_metrics.get('imgs_per_sec', 0):.1f} img/s")
             if val_metrics:
-                print(f"  val loss {val_metrics.get('loss', float('nan')):.4f} | "
-                      f"P {val_metrics.get('precision', 0):.4f} "
-                      f"R {val_metrics.get('recall', 0):.4f} "
-                      f"mAP50 {val_metrics.get('mAP50', 0):.4f} "
-                      f"mAP50-95 {val_metrics.get('mAP50-95', 0):.4f}")
+                self._say(f"  val loss {val_metrics.get('loss', float('nan')):.4f} | "
+                          f"P {val_metrics.get('precision', 0):.4f} "
+                          f"R {val_metrics.get('recall', 0):.4f} "
+                          f"mAP50 {val_metrics.get('mAP50', 0):.4f} "
+                          f"mAP50-95 {val_metrics.get('mAP50-95', 0):.4f}")
 
             if self.logger is not None:
                 self.logger.log(epoch, lr=lr,
@@ -393,11 +465,11 @@ class Trainer:
                     self.state, epoch, train_metrics, val_metrics,
                     self.best_loss, self.best_map50, extra_meta=extra)
                 if saved:
-                    print(f"  ✓ saved best (mAP50 {self.best_map50:.4f})")
+                    self._say(f"  ✓ saved best (mAP50 {self.best_map50:.4f})")
             history.append({"epoch": epoch, "train": train_metrics, "val": val_metrics})
             if self.cfg.patience > 0 and self.since_improve >= self.cfg.patience:
-                print(f"--> early stop at epoch {epoch + 1}: val fitness below its best "
-                      f"({self.patience_best:.4f}) for {self.cfg.patience} epochs")
+                self._say(f"--> early stop at epoch {epoch + 1}: val fitness below its best "
+                          f"({self.patience_best:.4f}) for {self.cfg.patience} epochs")
                 break
         return {"history": history, "best_mAP50": self.best_map50,
                 "best_loss": self.best_loss}
