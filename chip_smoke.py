@@ -92,7 +92,32 @@ Phases (any failure raises and exits non-zero):
    ``--bn-mode local`` epoch, ``val.main`` on rank 0's checkpoint); (d)
    ``Predictor.shard_over`` over two replicas at B=32 against unsharded
    Predictors at B=16; (e) (c) over NCCL and (d) across cards where there
-   are two or more, else one line saying why not.
+   are two or more, else one line saying why not;
+11. slice G: (a) the deploy CLIs on a checkpoint: a fresh one-epoch
+   ``train.cli`` run (crater YOLO11n, 640, B=16, ``--ema``), then
+   ``infer.main --ckpt DIR --which last`` at B=32, conf 0, IoU 0.45 over
+   32 cv2-written PNGs, equal to ``infer.main --weights`` on the same raw
+   ``state_dict`` exactly; the checkpoint's Predictor against the plain
+   sweep; ``export.main --ckpt --conf 0 --check``, its artifact equal to
+   the live Predictor; one ``serve.main --ckpt --conf 0`` request equal to
+   ``predict_paths``. Conf 0, as a one-epoch model scores every anchor
+   below 0.25: every compared image must hold a detection. (b) ``blocked_topk=32`` on phase 6's weights (every
+   anchor above 0.25) at B=32: the card's selected indices equal the
+   CPU's, kernel #1's detections the plain sweep's, and the number of
+   images whose selection differs from the exact one. (c) the tiled sweep
+   (``nms_impl="tiled"``, PyTorch ops) on phase 3's seeded boxes at B=32,
+   N=512 and 2048: keep masks equal to kernel #1's and to the CPU tiled
+   sweep's, its device ms beside kernel #1's; at N=8400, past kernel #1's
+   4096 boxes (the kernel must refuse), equal to the plain sweep and, on
+   one image, the pairwise sweep, its ms beside the pairwise sweep's. (d) ``dga_nms_device`` card
+   against CPU: the dGA matrix within 1e-6, keep sets exact. (e) the legacy
+   model at width_mult 1.15, 640, f32 with TF32 off, deterministic: the
+   forward, ``legacy_yolo_loss`` plus the crater losses (the angular
+   coverage on a disk-masked map, so that some bins and not all fall under
+   its threshold), the backward, card against CPU on 2 images within phase
+   7's limits, and the ms of each at B=16. (f) ``model_info`` of YOLO11n and YOLOX-s: parameters equal to the
+   CPU's, GFLOPs. Kernel #1's counter is zeroed before each main path of
+   (a) and (b) and read after.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -289,7 +314,8 @@ def plain_packed(pred: Predictor, feats) -> torch.Tensor:
     """The Predictor's postprocess with the plain sweep in place of kernel #1."""
     cfg, m = pred.cfg, pred.model
     boxes, scores, labels, valid, _ = select_candidates(
-        feats, m.nc, m.strides, m.reg_max, cfg.conf_threshold, cfg.pre_nms_topk)
+        feats, m.nc, m.strides, m.reg_max, cfg.conf_threshold, cfg.pre_nms_topk,
+        cfg.blocked_topk)
     keep = K._cap(K.nms_sweep_batched_plain(boxes, valid, cfg.iou_threshold), cfg.max_det)
     return pack_detections(*_finish(boxes, scores, labels, keep, cfg.max_det, cfg.img_size))
 
@@ -1918,6 +1944,367 @@ def multigpu_phase(dev, ident: str) -> dict:
     return dict(launches=launches, rates=tr["rates"], allreduce_ms=ph["all_reduce"])
 
 
+# slice G (phase 11): deploy from checkpoints, blocked top-k, the tiled and
+# dGA NMS, the legacy model with the crater losses, model_info
+BLOCKED_KB = 32
+LEGACY_BATCH, LEGACY_CPU_IMAGES = 16, 2
+LEGACY_WIDTH = 1.15
+DGA_TOL = 1e-6
+TILED_LONG_N = 8400  # every anchor of a 640 image: past kernel #1's 4096
+
+
+def ckpt_deploy_path(dev, ident: str, tmp) -> int:
+    """11(a): the infer, export and serve CLIs on a checkpoint ``train.cli``
+    wrote. Returns kernel #1's launches over the main paths."""
+    from yolo_scratch_tpu_torch import export as E
+    from yolo_scratch_tpu_torch import infer
+    from yolo_scratch_tpu_torch.train import cli as train_cli
+
+    run = str(tmp / "run")
+    t0 = time.perf_counter()
+    train_cli.main(["--data", "synthetic", "--scale", "n", "--imgsz", str(IMGSZ), "--batch",
+                    str(TRAIN_BATCH), "--epochs", "1", "--ema", "--save-dir", run])
+    tree = CheckpointManager(run).load_raw("last")
+    weights = str(tmp / "raw.pt")
+    torch.save(tree["model"], weights)
+    (tmp / "png").mkdir()
+    paths = write_request_images(tmp / "png", BATCH, seed=11)
+    log(f"11(a) a one-epoch train.cli run at {IMGSZ}, B={TRAIN_BATCH}, --ema: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # conf 0: a one-epoch model scores every anchor below 0.25, and the
+    # comparisons below must hold detections
+    cli = ["--images", str(tmp / "png"), "--imgsz", str(IMGSZ), "--batch", str(BATCH),
+           "--conf", "0", "--iou", str(IOU)]
+    K.reset_launches()
+    got = infer.main(cli + ["--ckpt", run, "--which", "last"])
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    ref = infer.main(cli + ["--weights", weights])
+    if launches != 1 or got != ref or not all(r["scores"] for r in got):
+        raise AssertionError(f"infer --ckpt: kernel #1 launches {launches}, results equal to "
+                             f"--weights on the raw state_dict: {got == ref}, images without "
+                             f"a detection: {sum(not r['scores'] for r in got)}")
+    model = infer.load_deploy_model(ckpt=run, which="last", device=dev)
+    cfg = PredictorConfig(img_size=IMGSZ, batch_size=BATCH, conf_threshold=0.0)
+    pred = Predictor(model, cfg, device=dev)
+    imgs, _ = pred._prepare(paths)
+    with torch.inference_mode():
+        feats = pred.forward_feats(imgs)
+        a, b = pred.postprocess_feats(feats), plain_packed(pred, feats)
+    if not torch.equal(a, b):
+        raise AssertionError("the checkpoint's Predictor at conf 0: kernel #1's detections "
+                             "differ from the plain sweep's")
+    log(f"11(a) infer.main --ckpt --which last (B={BATCH}, conf 0, IoU {IOU}, {len(paths)} "
+        f"cv2 PNGs): {sum(len(r['scores']) for r in got)} detections, at least one an image, "
+        f"equal to infer.main --weights on the raw state_dict; kernel #1 launches {launches}; "
+        f"the checkpoint's Predictor equals the plain sweep ({int(a[..., 6].sum())} kept)")
+
+    art_path = str(tmp / "ckpt.pt2")
+    E.main(["--ckpt", run, "--which", "last", "--imgsz", str(IMGSZ), "--batch", str(BATCH),
+            "--conf", "0", "--out", art_path, "--check"])
+    art = E.ArtifactPredictor(E.load_artifact(art_path))
+    live = Predictor(model, cfg, device=dev)
+    x = np.random.RandomState(11).randint(0, 256, (BATCH, IMGSZ, IMGSZ, 1), dtype=np.uint8)
+    want = live.predict_batch(x)
+    K.reset_launches()
+    out = art.predict_batch(x)
+    torch.cuda.synchronize()
+    n = K.launches["nms_sweep_batched"]
+    kept = want[..., 6].sum(-1)
+    if n != 1 or not torch.equal(out, want) or not bool((kept > 0).all()):
+        raise AssertionError(f"export --ckpt: kernel #1 launches {n}, artifact equal to live: "
+                             f"{torch.equal(out, want)}, images without a detection: "
+                             f"{int((kept == 0).sum())}")
+    launches += n
+    log(f"11(a) export.main --ckpt --conf 0 --check: the artifact's packed output equals the "
+        f"live Predictor's at B={BATCH} ({int(kept.sum())} kept, at least one an image); "
+        f"kernel #1 launches {n}")
+
+    served = Predictor(model, PredictorConfig(img_size=IMGSZ, batch_size=SERVE_BATCH,
+                                              conf_threshold=0.0), device=dev)
+    (one,) = served.predict_paths(paths[:1])
+    if not one["scores"]:
+        raise AssertionError("serve --ckpt: predict_paths holds no detection to compare")
+    torch.backends.cudnn.benchmark = False  # one bf16 plan in both threads (phase 9)
+    try:
+        launches += drive_daemon(["--ckpt", run, "--which", "last", "--imgsz", str(IMGSZ),
+                                  "--batch", str(SERVE_BATCH), "--conf", "0", "--port", "0"],
+                                 served, paths[:1], ident,
+                                 f"serve.main --ckpt --conf 0, one request "
+                                 f"({len(one['scores'])} detections)")
+    finally:
+        torch.backends.cudnn.benchmark = True
+    return launches
+
+
+def blocked_topk_path(dev, ident: str) -> int:
+    """11(b): ``blocked_topk`` on phase 6's weights at B=32. Returns kernel
+    #1's launches on the main path."""
+    from yolo_scratch_tpu_torch.ops.decode import topk_scores
+
+    model = eval_model()
+    x = np.random.RandomState(12).randint(0, 256, (BATCH, IMGSZ, IMGSZ, 1), dtype=np.uint8)
+    cfg = PredictorConfig(img_size=IMGSZ, batch_size=BATCH, blocked_topk=BLOCKED_KB)
+    pred = Predictor(model, cfg, device=dev)
+    K.reset_launches()
+    packed = pred.predict_batch(x)
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    check_packed(packed, BATCH, cfg.max_det)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+        m = pred.model
+        no = m.nc + 4 * m.reg_max
+        logits = torch.cat([f.reshape(BATCH, -1, no)[..., 4 * m.reg_max:] for f in feats],
+                           1).amax(-1)
+        ok = torch.sigmoid(logits.float()) > cfg.conf_threshold
+        masked = logits.masked_fill(~ok, float("-inf"))
+        v_card, i_card = topk_scores(masked, cfg.pre_nms_topk, blocked=BLOCKED_KB)
+        v_cpu, i_cpu = topk_scores(masked.cpu(), cfg.pre_nms_topk, blocked=BLOCKED_KB)
+        _, i_exact = topk_scores(masked, cfg.pre_nms_topk)
+    if launches != 1 or not torch.equal(got, ref) or not torch.equal(packed, got):
+        raise AssertionError(f"blocked top-k: kernel #1 launches {launches}, detections equal "
+                             f"to the plain sweep's: {torch.equal(got, ref)}")
+    if not (torch.equal(i_card.cpu(), i_cpu) and torch.equal(v_card.cpu(), v_cpu)):
+        raise AssertionError("blocked top-k: the card's selection differs from the CPU's")
+    differ = int((i_card.sort(-1).values != i_exact.sort(-1).values).any(-1).sum())
+    log(f"11(b) blocked top-k (kb={BLOCKED_KB}, K={cfg.pre_nms_topk}, phase 6's weights, every "
+        f"anchor above 0.25, B={BATCH}, bf16): selected indices equal the CPU's; kernel #1's "
+        f"detections equal the plain sweep's ({int(got[..., 6].sum())} kept); launches "
+        f"{launches}; {differ} of {BATCH} images select another set than the exact top-k")
+    return launches
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host wall time of ``reps`` calls of ``fn``, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def tiled_path(dev, ident: str) -> dict:
+    """11(c): the tiled sweep on phase 3's seeded boxes: against kernel #1
+    and the CPU at N=512 and 2048, and past kernel #1's limit at N=8400 (all
+    anchors of a 640 image), where the kernel refuses, against the plain
+    sweep and the pairwise sweep; device and wall ms of each route."""
+    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled, nms
+
+    rows = {}
+    for i, n in enumerate((512, 2048, TILED_LONG_N)):
+        boxes, valid = seeded_boxes(100 + i, (BATCH, n), dev)  # phase 3's seeds
+        # rows are score-sorted: descending distinct scores keep the order
+        scores = torch.linspace(1.0, 0.0, n, device=dev).expand(BATCH, n).contiguous()
+
+        def tiled():
+            return batched_nms_tiled(boxes, scores, valid, iou_threshold=IOU, max_det=n)
+
+        keep = tiled()
+        torch.cuda.synchronize()
+        row = dict(kept=int(keep.sum()), tiled_ms=device_ms(tiled, reps=5),
+                   tiled_wall_ms=wall_ms(tiled, 5))
+        if n <= K._max_n():
+            kern = K.nms_sweep_batched(boxes, valid, IOU)
+            cpu = batched_nms_tiled(boxes.cpu(), scores.cpu(), valid.cpu(), iou_threshold=IOU,
+                                    max_det=n)
+            if not (torch.equal(keep, kern) and torch.equal(keep.cpu(), cpu)):
+                raise AssertionError(f"tiled sweep at B={BATCH}, N={n}: equal to kernel #1: "
+                                     f"{torch.equal(keep, kern)}, to the CPU's: "
+                                     f"{torch.equal(keep.cpu(), cpu)}")
+            row["kernel_ms"] = call_ms(lambda: K.nms_sweep_batched(boxes, valid, IOU),
+                                       NMS_SYMBOLS)[0]
+        else:
+            try:
+                K.nms_sweep_batched(boxes, valid, IOU)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"kernel #1 took N={n}, past its {K._max_n()} boxes")
+            plain = K.nms_sweep_batched_plain(boxes, valid, IOU)
+
+            def pairwise():
+                return nms(boxes[0], scores[0], iou_threshold=IOU, max_det=n, valid=valid[0],
+                           presorted=True)
+
+            pw = pairwise()
+            if not (torch.equal(keep, plain) and torch.equal(keep[0], pw)):
+                raise AssertionError(f"tiled sweep at B={BATCH}, N={n}: equal to the plain "
+                                     f"sweep: {torch.equal(keep, plain)}, image 0 to the "
+                                     f"pairwise sweep: {torch.equal(keep[0], pw)}")
+            row["pairwise_wall_ms_per_image"] = wall_ms(pairwise, 1)
+        rows[n] = row
+    short = "; ".join(f"B={BATCH}, N={n}: {r['kept']} kept, tiled {r['tiled_ms']:.4f} ms device "
+                      f"({r['tiled_wall_ms']:.2f} ms wall) vs kernel #1 {r['kernel_ms']:.4f} ms"
+                      for n, r in rows.items() if "kernel_ms" in r)
+    r = rows[TILED_LONG_N]
+    log(f"11(c) tiled sweep (nms_impl='tiled', PyTorch ops) on phase 3's seeded boxes: keep "
+        f"masks equal kernel #1's and the CPU tiled sweep's; {short}; past kernel #1's "
+        f"{K._max_n()} boxes (it refuses), B={BATCH}, N={TILED_LONG_N}: {r['kept']} kept, equal "
+        f"to the plain sweep's and, on image 0, the pairwise sweep's; tiled "
+        f"{r['tiled_ms']:.4f} ms device ({r['tiled_wall_ms']:.2f} ms wall) for {BATCH} images "
+        f"vs pairwise {r['pairwise_wall_ms_per_image']:.2f} ms wall for one image on {ident}")
+    return rows
+
+
+def dga_path(dev) -> None:
+    """11(d): ``pairwise_dga`` and ``dga_nms_device``, card against CPU."""
+    from yolo_scratch_tpu_torch.ops.dga_nms import dga_nms_device, pairwise_dga
+
+    rng = np.random.RandomState(13)
+    n = 300
+    c = rng.rand(n, 2).astype(np.float32) * 0.8 + 0.1
+    wh = rng.rand(n, 2).astype(np.float32) * 0.15 + 0.03
+    boxes = np.clip(np.concatenate([c - wh / 2, c + wh / 2], -1), 0, 1)
+    boxes[n // 2:] = boxes[: n - n // 2] + rng.uniform(0, 0.003, (n - n // 2, 4)).astype(
+        np.float32)  # near-duplicates
+    scores = rng.rand(n).astype(np.float32)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    err = float((pairwise_dga(b.to(dev)).cpu() - pairwise_dga(b)).abs().max())
+    keep_card = dga_nms_device(b.to(dev), s.to(dev), max_det=10)
+    keep_cpu = dga_nms_device(b, s, max_det=10)
+    if err > DGA_TOL or not torch.equal(keep_card.cpu(), keep_cpu):
+        raise AssertionError(f"dGA NMS card vs CPU: matrix {err:.3g} (limit {DGA_TOL}), keep "
+                             f"sets equal: {torch.equal(keep_card.cpu(), keep_cpu)}")
+    log(f"11(d) dGA NMS, N={n} (half near-duplicates), card vs CPU: dGA matrix within "
+        f"{err:.3g} (limit {DGA_TOL}), keep sets equal ({int(keep_cpu.sum())} kept, max_det 10)")
+
+
+def legacy_losses(model, batch) -> tuple:
+    """The legacy model's forward, ``legacy_yolo_loss`` (centre-weighted
+    CIoU, objectness, classification) and the three mask losses on its P2
+    objectness map read as a crater mask against a disk under each image's
+    first ground truth: (total, the parts by name, the times' marks)."""
+    from yolo_scratch_tpu_torch.losses.crater_aux import (
+        angular_coverage_loss,
+        ellipse_consistency_loss,
+        rim_weighted_mask_loss,
+    )
+    from yolo_scratch_tpu_torch.losses.legacy_loss import build_legacy_targets, legacy_yolo_loss
+
+    preds = model(batch["img"])
+    fwd = None
+    if batch["img"].is_cuda:  # the forward's end, for the times at B=16
+        fwd = torch.cuda.Event(enable_timing=True)
+        fwd.record()
+    targets = build_legacy_targets(batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"],
+                                   [tuple(p["bbox"].shape[1:3]) for p in preds])
+    parts = legacy_yolo_loss(preds, targets)
+    logits = preds[0]["objectness"][..., 0]  # (B, S/4, S/4)
+    H, W = logits.shape[1:]
+    gt = batch["gt_bboxes"][:, 0]
+    cx, cy = (gt[:, 0] + gt[:, 2]) / 2, (gt[:, 1] + gt[:, 3]) / 2
+    w, h = gt[:, 2] - gt[:, 0], gt[:, 3] - gt[:, 1]
+    ys = (torch.arange(H, device=logits.device) + 0.5)[None, :, None] / H
+    xs = (torch.arange(W, device=logits.device) + 0.5)[None, None, :] / W
+    disk = (((xs - cx[:, None, None]) / (w[:, None, None] / 2)) ** 2
+            + ((ys - cy[:, None, None]) / (h[:, None, None] / 2)) ** 2 < 1).float()
+    prob = torch.sigmoid(logits)
+    parts["rim_mask"] = rim_weighted_mask_loss(logits, disk)
+    # the probabilities inside the disk only: bins that reach past it fall
+    # under min_activation, so the count depends on the binning
+    parts["angular"] = angular_coverage_loss(disk * prob, torch.stack([cx, cy], -1),
+                                             valid=batch["gt_mask"][:, 0])
+    parts["ellipse"] = ellipse_consistency_loss(prob, torch.stack([cx, cy, w, h], -1))
+    total = parts["total_loss"] + parts["rim_mask"] + parts["angular"] + parts["ellipse"]
+    return total, parts, fwd
+
+
+def legacy_step(model, batch, where) -> dict:
+    """Forward, losses and backward of a copy of ``model`` on ``where``:
+    the losses and the gradients on the host."""
+    m = copy.deepcopy(model).to(where).train()
+    b = {k: v.to(where) for k, v in batch.items()}
+    total, parts, _ = legacy_losses(m, b)
+    total.backward()
+    return dict(losses={k: float(v.detach()) for k, v in parts.items()}
+                | {"total": float(total.detach())},
+                grads={n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+
+
+def legacy_path(dev, ident: str) -> None:
+    """11(e): the legacy model at width_mult 1.15, 640, f32, TF32 off,
+    deterministic: card against CPU on 2 images, then the ms of the forward,
+    the losses and the backward at B=16."""
+    from yolo_scratch_tpu_torch.models.legacy import build_legacy
+
+    model = build_legacy(num_classes=5, width_mult=LEGACY_WIDTH, ch=1, seed=0)
+    batch = batch_to_device(next(iter(Loader(SyntheticDataset(n=LEGACY_BATCH, img_size=IMGSZ),
+                                             LEGACY_BATCH, max_gt=8, prefetch=0))), "cpu")
+    small = {k: v[:LEGACY_CPU_IMAGES] for k, v in batch.items()}
+    with deterministic_mode(), precision_scope("highest"):
+        got, ref = legacy_step(model, small, dev), legacy_step(model, small, "cpu")
+        if not 0.0 < ref["losses"]["angular"] < 1.0:
+            raise AssertionError(f"angular coverage on the CPU reads {ref['losses']['angular']}: "
+                                 "all or no bins under-activated, so no binning is compared")
+        rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in ref["losses"].items()
+               if v != 0.0 or got["losses"][k] != 0.0}
+        floor = 1e-4 * max(float(g.abs().max()) for g in ref["grads"].values())
+        g_err = max(float((got["grads"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
+                    for n, g in ref["grads"].items())
+        if max(rel.values()) > 1e-4 or g_err > 1e-3:
+            raise AssertionError(f"legacy model card vs CPU: losses {rel}, gradients {g_err:.3g} "
+                                 "of max|g| (limits 1e-4, 1e-3)")
+        m = copy.deepcopy(model).to(dev).train()
+        b = {k: v.to(dev) for k, v in batch.items()}
+        times = {"forward": [], "loss": [], "backward": []}
+        for _ in range(4):  # the first warms up
+            m.zero_grad(set_to_none=True)
+            t0, t2 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t3 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            total, parts, t1 = legacy_losses(m, b)
+            t2.record()
+            total.backward()
+            t3.record()
+            torch.cuda.synchronize()
+            for k, (a, z) in zip(times, ((t0, t1), (t1, t2), (t2, t3))):
+                times[k].append(a.elapsed_time(z))
+    ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+    n_params = sum(p.numel() for p in m.parameters())
+    log(f"11(e) legacy model (width_mult {LEGACY_WIDTH}, {n_params:,} parameters) at {IMGSZ}, "
+        f"f32, TF32 off, deterministic: card vs CPU on {LEGACY_CPU_IMAGES} images, losses "
+        f"within {max(rel.values()):.3g} relative (limit 1e-4: "
+        + ", ".join(f"{k} {ref['losses'][k]:.4f}" for k in ref["losses"])
+        + f"), gradients within {g_err:.3g} of max|g| (limit 1e-3); at B={LEGACY_BATCH}: "
+        f"forward {ms['forward']:.2f} ms, loss {ms['loss']:.2f} ms, backward "
+        f"{ms['backward']:.2f} ms on {ident}")
+
+
+def model_info_path(dev, ident: str) -> None:
+    """11(f): ``model_info`` on the card against the CPU."""
+    from yolo_scratch_tpu_torch.utils.model_info import model_info
+
+    for name, build in (("YOLO11n crater", lambda: build_yolo11(
+            CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n")),
+                        ("YOLOX-s COCO", lambda: build_yolox("s", nc=80, ch=3))):
+        cpu = model_info(build(), img_size=IMGSZ)
+        card = model_info(build().to(dev), img_size=IMGSZ)
+        if card["params"] != cpu["params"] or card["gflops"] != cpu["gflops"]:
+            raise AssertionError(f"model_info {name}: card {card} vs CPU {cpu}")
+        log(f"11(f) model_info {name} at {IMGSZ}: {card['params']:,} parameters (the CPU's), "
+            f"{card['gflops']:.3f} GFLOPs (FlopCounterMode, card and CPU alike)")
+
+
+def slice_g_phase(dev, ident: str) -> dict:
+    """11: the modules and faults of slice G on the card."""
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        launches = ckpt_deploy_path(dev, ident, Path(td))
+    launches += blocked_topk_path(dev, ident)
+    rows = tiled_path(dev, ident)
+    dga_path(dev)
+    legacy_path(dev, ident)
+    model_info_path(dev, ident)
+    log(f"slice G phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, tiled=rows)
+
+
 def across_cards(dev, ident: str) -> int:
     """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
     card a rank, (d) over every card, and the GPU test of a kernel launched
@@ -1973,16 +2360,18 @@ def main() -> int:
     yt = yolox_train_phase(dev, ident)
     dp = deploy_phase(dev, ident)
     mg = multigpu_phase(dev, ident)
+    sg = slice_g_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
     # validation paths of both families, on phase 9's int8 Predictor,
     # artifacts, daemons and infer CLI, and on phase 10's mesh validation
-    # (every rank's, summed) and shard_over replicas; #2 on the B=1
-    # postprocess of both families
+    # (every rank's, summed) and shard_over replicas, and on phase 11's
+    # checkpoint deploy (infer, export, serve) and blocked top-k paths; #2 on
+    # the B=1 postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
                                       + ye["launches"] + yt["launches"] + dp["launches"]
-                                      + mg["launches"]),
+                                      + mg["launches"] + sg["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

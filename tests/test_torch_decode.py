@@ -110,11 +110,14 @@ def test_selection_tie_order_matches_xla(dtype):
 
 
 def test_topk_scores_exact_only():
+    """The default is the exact top-k; the blocked selection is opt-in
+    (``tests/test_torch_topk_tiled.py`` holds it against JAX) and equals
+    the exact one where no block holds more than kb of the top-k."""
     s = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]])
     vals, idx = topk_scores(s, 3)
     assert idx.tolist() == [[1, 2, 4]] and vals.tolist() == [[3.0, 3.0, 3.0]]
-    with pytest.raises(NotImplementedError):
-        topk_scores(s, 3, blocked=32)
+    bvals, bidx = topk_scores(s, 3, blocked=32)
+    assert torch.equal(bidx, idx) and torch.equal(bvals, vals)
 
 
 def test_cand_count_matches_jax():

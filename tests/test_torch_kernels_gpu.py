@@ -22,6 +22,10 @@ card.
 * The mesh eval step (``parallel/``): two gloo ranks sharing cuda:0 each
   sweep their rows of one validation batch with kernel #1, keep masks and
   detections equal to the plain sweep's, exactly.
+* Slice G: kernel #1 on the blocked-top-k and checkpoint deploy paths
+  equals the plain sweep, exactly; the tiled sweep (PyTorch ops) on the
+  card equals kernel #1 and the CPU, exactly, and past kernel #1's 4096
+  boxes, where the kernel refuses, its plain version.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -478,3 +482,84 @@ def test_mesh_validation_sweeps_kernel_1_on_every_rank(cuda, tmp_path):
     for r in out:
         assert r["transport"] == "gloo" and r["launched"] == 1 and r["swept"] > 0, r
         assert r["keep_equal"] and r["dets_equal"], r
+
+
+def test_blocked_topk_predictor_sweeps_kernel_1_as_plain(cuda):
+    """Slice G's ``blocked_topk`` (kb=8) on the crater YOLO11n with every
+    anchor above 0.25 (``chip_smoke.eval_model``), 96 px, B=4: kernel #1
+    launches once a batch, its detections equal the plain sweep's, and the
+    card's blocked selection equals the CPU's on the same maps."""
+    from chip_smoke import eval_model, plain_packed
+    from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig
+    from yolo_scratch_tpu_torch.ops.decode import select_candidates
+
+    pred = Predictor(eval_model(), PredictorConfig(img_size=96, batch_size=4, blocked_topk=8),
+                     device=cuda)
+    x = np.random.RandomState(5).randint(0, 256, (4, 96, 96, 1), dtype=np.uint8)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        before = K.launches["nms_sweep_batched"]
+        got = pred.postprocess_feats(feats)
+        torch.cuda.synchronize()
+        assert K.launches["nms_sweep_batched"] == before + 1
+        assert torch.equal(got, plain_packed(pred, feats)) and int(got[..., 6].sum()) > 0
+        m, cfg = pred.model, pred.cfg
+        args = (m.nc, m.strides, m.reg_max, cfg.conf_threshold, cfg.pre_nms_topk, 8)
+        card = select_candidates(feats, *args)
+        cpu = select_candidates([f.cpu() for f in feats], *args)
+    for a, b in zip(card[2:4], cpu[2:4]):  # labels and valid: the selection
+        assert torch.equal(a.cpu(), b)
+
+
+def test_checkpoint_deploy_sweeps_kernel_1_as_plain(cuda, tmp_path):
+    """A ``train/checkpoints.py`` checkpoint served through
+    ``load_deploy_model(ckpt=...)`` on the card: kernel #1 launches and its
+    detections equal the plain sweep's at conf 0."""
+    from chip_smoke import eval_model, plain_packed
+    from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig, load_deploy_model
+    from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
+    from yolo_scratch_tpu_torch.train.optim import make_optimizer
+    from yolo_scratch_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(eval_model(), make_optimizer(), use_ema=True)
+    CheckpointManager(str(tmp_path)).save_epoch(state, 0, {}, {"mAP50": 0.5}, float("inf"), 0.0)
+    model = load_deploy_model(ckpt=tmp_path, which="last", device=cuda)
+    pred = Predictor(model, PredictorConfig(img_size=96, batch_size=4, conf_threshold=0.0),
+                     device=cuda)
+    x = np.random.RandomState(6).randint(0, 256, (4, 96, 96, 1), dtype=np.uint8)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        before = K.launches["nms_sweep_batched"]
+        got = pred.postprocess_feats(feats)
+        torch.cuda.synchronize()
+        assert K.launches["nms_sweep_batched"] == before + 1
+        assert torch.equal(got, plain_packed(pred, feats)) and int(got[..., 6].sum()) > 0
+
+
+@pytest.mark.parametrize("B,N", [(32, 512), (4, 2048), (3, 77)])
+def test_tiled_sweep_on_the_card_equals_kernel_1(cuda, B, N):
+    """``ops/nms.py::batched_nms_tiled`` (PyTorch ops) on the card against
+    kernel #1 and against itself on the CPU, on score-sorted rows."""
+    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled
+
+    boxes, valid = _inputs(B + N, (B, N), cuda)
+    scores = torch.linspace(1.0, 0.0, N, device=cuda).expand(B, N).contiguous()
+    got = batched_nms_tiled(boxes, scores, valid, iou_threshold=0.45, max_det=N)
+    assert torch.equal(got, K.nms_sweep_batched(boxes, valid, 0.45))
+    assert torch.equal(got.cpu(), batched_nms_tiled(boxes.cpu(), scores.cpu(), valid.cpu(),
+                                                    iou_threshold=0.45, max_det=N))
+
+
+def test_tiled_sweep_on_the_card_past_kernel_1s_limit(cuda):
+    """At N = 8400 (every anchor of a 640 image) kernel #1 refuses, and the
+    tiled sweep on the card equals kernel #1's plain version."""
+    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled
+
+    B, N = 2, 8400
+    assert N > K._max_n()
+    boxes, valid = _inputs(N, (B, N), cuda)
+    scores = torch.linspace(1.0, 0.0, N, device=cuda).expand(B, N).contiguous()
+    with pytest.raises(ValueError, match="nms_impl='tiled'"):
+        K.nms_sweep_batched(boxes, valid, 0.45)
+    got = batched_nms_tiled(boxes, scores, valid, iou_threshold=0.45, max_det=N)
+    assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))

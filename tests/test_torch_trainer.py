@@ -306,6 +306,58 @@ def test_trainer_pretrained_warm_start(tmp_path):
     assert loaded > 0 and kept > 0
 
 
+def test_pretrained_ema_starts_from_the_init_as_jax(tmp_path):
+    """With ``pretrained`` and ``use_ema`` the Trainer creates the state
+    (the EMA a copy of the init) before it overlays the pretrained weights
+    on the live model, as the JAX Trainer does. Both Trainers start from
+    the JAX init (carried across by the weight bridge), load the same
+    reference-layout ``.pt`` and take one step on the same batch, f32
+    (``train_matmul_precision="highest"``); the EMA after it is held as in
+    ``test_torch_train_step.py::test_one_step_matches_jax``: within ``lr *
+    |u_port - u_jax| + 1e-6``, u the Adam direction each side's moments
+    give. Overlaid before the state is created, the EMA would start from
+    the pretrained weights: ~5e-4 (the first decay) x |init - pretrained|
+    away."""
+    from tests.test_torch_train_step import JAX_CFG, _params_sd
+    from yolo_scratch_tpu.data.loader import Loader as JLoader
+    from yolo_scratch_tpu.data.synthetic import SyntheticDataset as JSynthetic
+    from yolo_scratch_tpu.models.builder import build_yolo11 as jax_build
+    from yolo_scratch_tpu.train.trainer import Trainer as JTrainer
+    from yolo_scratch_tpu.train.trainer import TrainerConfig as JTrainerConfig
+    from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
+
+    torch.save({"model_state_dict": _model(seed=123).state_dict()}, tmp_path / "pre.pt")
+    ds_kw = dict(n=4, img_size=64, channels=1, num_classes=5)
+    kw = dict(epochs=1, lr=1e-3, use_ema=True, pretrained=str(tmp_path / "pre.pt"),
+              train_matmul_precision="highest")
+    jt = JTrainer(jax_build(JAX_CFG, ch=1, nc=5, scale="n"),
+                  JLoader(JSynthetic(**ds_kw), 4, max_gt=8, prefetch=0), None,
+                  JTrainerConfig(**kw))
+    model = _model()
+    model.load_state_dict(state_dict_from_jax({"params": jt.state.ema_params}), strict=False)
+    tr = Trainer(model, Loader(SyntheticDataset(**ds_kw), 4, max_gt=8, prefetch=0), None,
+                 TrainerConfig(**kw))
+    pre = torch.load(tmp_path / "pre.pt", weights_only=True)["model_state_dict"]
+    assert all(torch.equal(p, pre[n]) for n, p in tr.model.named_parameters())
+    lr = tr.state.tx.lr(0)
+    tr.train_epoch(0)
+    jt.train_epoch(0)
+
+    adam = jt.state.opt_state[1][0]
+    mu_ref, nu_ref = _params_sd(adam.mu), _params_sd(adam.nu)
+    ema_ref = _params_sd(jt.state.ema_params)
+    names = [n for n, _ in tr.model.named_parameters()]
+    mu, nu = dict(zip(names, tr.state.opt_state.mu)), dict(zip(names, tr.state.opt_state.nu))
+    assert tr.state.step == int(jt.state.step) == 1
+
+    def direction(m, v):
+        return (m / (1 - 0.9)) / ((v / (1 - 0.999)).sqrt() + 1e-8)
+
+    for n in names:
+        bound = lr * (direction(mu[n], nu[n]) - direction(mu_ref[n], nu_ref[n])).abs() + 1e-6
+        assert bool(((tr.state.ema[n] - ema_ref[n]).abs() <= bound).all()), n
+
+
 # ------------------------------------------------------------- CLIs
 
 def _actions(parser):

@@ -16,7 +16,8 @@ on, as a JAX artifact keeps its platform, and its batch is fixed: callers
 pad the tail batch (``predict_paths`` does).
 
 CLI: ``python -m yolo_scratch_tpu_torch.export --weights w.pt --out
-model.pt2 --check`` (``--device cpu`` to export for the CPU).
+model.pt2 --check`` (or ``--ckpt <dir> [--which best|last]``, or
+``--torch-ckpt ref.pt``; ``--device cpu`` to export for the CPU).
 """
 
 from __future__ import annotations
@@ -155,15 +156,19 @@ def main(argv=None):
     import argparse
     from pathlib import Path
 
-    from yolo_scratch_tpu_torch.infer import Predictor, load_deploy_model, quantize_from_paths
+    from yolo_scratch_tpu_torch.infer import (
+        Predictor,
+        add_source_args,
+        load_from_args,
+        quantize_from_paths,
+    )
     from yolo_scratch_tpu_torch.models.builder import CONFIGS
 
     p = argparse.ArgumentParser(description="Export the deploy program to a torch.export "
                                             "artifact")
     p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
     p.add_argument("--scale", type=str, default="n")
-    p.add_argument("--weights", type=str, default=None,
-                   help="port state_dict (.pt); default: seeded init")
+    add_source_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model", type=str, default="auto", choices=["auto", "yolo11", "yolox"])
     p.add_argument("--imgsz", type=int, default=640)
@@ -190,9 +195,7 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     args = p.parse_args(argv)
 
-    model = load_deploy_model(args.cfg, scale=args.scale, weights=args.weights, ch=args.ch,
-                              nc=args.nc, seed=args.seed, device=args.device,
-                              model_kind=args.model)
+    model = load_from_args(args)
     cfg = PredictorConfig(
         img_size=args.imgsz, batch_size=args.batch, conf_threshold=args.conf,
         iou_threshold=args.iou, max_det=args.max_det, class_aware_nms=args.class_aware,

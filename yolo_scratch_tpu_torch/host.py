@@ -38,7 +38,12 @@ class PredictorConfig:
     u8_transfer: bool = True  # ship uint8 to the device; /255 runs there
     fast_jpeg: bool = True  # libjpeg M/8 decode-time downscale (see data/native.py)
     inflight: int = 3  # batches predict_paths keeps in flight
-    nms_impl: str = "kernel"  # the CUDA sweep; "pairwise" for ops/nms.py
+    nms_impl: str = "kernel"  # the CUDA sweep; "pairwise" or "tiled" for ops/nms.py
+    # Two-stage blocked candidate selection (ops/decode.py::topk_scores),
+    # YOLO11 only. Exact unless one 128-anchor block holds more than this
+    # many of the top-k, which dense crater scenes do: opt in only where
+    # that was checked. 0 = exact.
+    blocked_topk: int = 0
 
 
 def pack_detections(boxes, scores, labels, valid) -> torch.Tensor:

@@ -19,10 +19,12 @@ the whole per-image program on its contiguous rows, the outputs gathered in
 order on the first device.
 
 CLI: ``python -m yolo_scratch_tpu_torch.infer --images <dir> [--weights
-state_dict.pt] [--model auto|yolo11|yolox] [--int8-calib N] --out
-preds.json``. Runs on ``cuda`` unless ``--device cpu``.
+state_dict.pt | --ckpt <dir> [--which best|last] | --torch-ckpt ref.pt]
+[--model auto|yolo11|yolox] [--int8-calib N] [--blocked-topk N] [--save-viz
+DIR [--names FILE]] --out preds.json``. Runs on ``cuda`` unless ``--device
+cpu``.
 
-Not ported yet: orbax checkpoints.
+The JAX package's orbax checkpoints are not read: orbax imports JAX.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ class Predictor(HostPredictor):
                       nms_impl=cfg.nms_impl)
         if self.is_dfl:
             return postprocess_from_feats(feats, nc=m.nc, strides=m.strides,
-                                          reg_max=m.reg_max, **common)
+                                          reg_max=m.reg_max, blocked_topk=cfg.blocked_topk,
+                                          **common)
         # YOLOX decodes in f32: bf16 box coordinates quantise to ~2.5 px at
         # 640 (exp(wh) * stride is the sensitive part)
         decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
@@ -166,20 +169,49 @@ def load_deploy_model(
     seed: int = 0,
     device: str | torch.device | None = None,
     model_kind: str = "auto",
+    ckpt: str | Path | None = None,
+    which: str = "best",
+    torch_ckpt: str | Path | None = None,
 ) -> YOLOModel | YOLOXModel:
-    """Build the model a deploy CLI serves: from a port ``state_dict`` file
-    (``weights``; ch/nc read off it unless given) or a seeded init.
-    Explicit ``ch``/``nc`` win. ``model_kind="auto"`` reads the family off
-    the weights (a ``backbone.`` key means YOLOX, whose depth and width are
-    read off too; ``yolox_arch_from_params``) and is YOLO11 without them.
-    The defaults are the crater model's 1/5 for YOLO11 and COCO's 3/80 for
-    YOLOX (``scale`` "n" means nano there)."""
+    """Build the model a deploy CLI serves, from the first source given of:
+
+    * ``torch_ckpt``: a reference-layout ``.pt`` (``utils/weights.py``);
+      always YOLO11, as the reference has no YOLOX;
+    * ``ckpt``: a checkpoint directory of the port's trainer
+      (``train/checkpoints.py``), its ``which`` ("best" or "last")
+      checkpoint. It serves the raw weights and BN buffers, not the EMA,
+      as the JAX CLIs do, and a model that does not fit the checkpoint
+      (a forced ``--nc``/``--ch``) raises a ``ValueError`` naming it;
+    * ``weights``: a port ``state_dict`` file;
+    * else a seeded init.
+
+    ch/nc are read off the weights unless given (explicit values win).
+    ``model_kind="auto"`` reads the family off them too (a ``backbone.`` key
+    means YOLOX, whose depth and width are read off as well;
+    ``yolox_arch_from_params``) and is YOLO11 without weights. The defaults
+    are the crater model's 1/5 for YOLO11 and COCO's 3/80 for YOLOX
+    (``scale`` "n" means nano there)."""
+    from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager, check_checkpoint
+    from yolo_scratch_tpu_torch.utils.weights import (
+        load_reference_checkpoint,
+        reference_state_dict,
+    )
+
     dev = resolve_device(device)
-    state = None
-    if weights:
+    state = tree = None
+    if torch_ckpt:
+        model_kind = "yolo11"
+        state = reference_state_dict(torch_ckpt)
+    elif ckpt:
+        mgr = CheckpointManager(str(ckpt))
+        tree = mgr.load_raw(which) if mgr.load_meta(which) is not None else None
+        if tree is None:
+            raise FileNotFoundError(f"no checkpoint '{which}' under {ckpt}")
+        state = tree["model"]
+    elif weights:
         state = torch.load(weights, map_location="cpu", weights_only=True)
-        if model_kind == "auto":
-            model_kind = "yolox" if any(k.startswith("backbone.") for k in state) else "yolo11"
+    if state is not None and model_kind == "auto":
+        model_kind = "yolox" if any(k.startswith("backbone.") for k in state) else "yolo11"
     if model_kind == "yolox":
         if state is not None:
             d_ch, d_nc, depth, width = yolox_arch_from_params(state)
@@ -196,9 +228,31 @@ def load_deploy_model(
             d_ch, d_nc = dims_from_params(state)
             ch, nc = ch or d_ch, nc or d_nc
         model = build_yolo11(cfg_path, ch=ch or 1, nc=nc or 5, scale=scale, seed=seed)
-    if state is not None:
+    if tree is not None:
+        check_checkpoint(tree, model, which, ema=False)
+    if torch_ckpt:
+        load_reference_checkpoint(model, torch_ckpt, state)
+    elif state is not None:
         model.load_state_dict(state)
     return model.to(dev)
+
+
+def add_source_args(p) -> None:
+    """The deploy CLIs' weight sources (:func:`load_deploy_model`)."""
+    p.add_argument("--weights", type=str, default=None,
+                   help="port state_dict (.pt); default: seeded init")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="checkpoint dir of the port's trainer (its raw weights, not the EMA)")
+    p.add_argument("--which", type=str, default="best", choices=["best", "last"])
+    p.add_argument("--torch-ckpt", type=str, default=None, help="reference .pt checkpoint")
+
+
+def load_from_args(args):
+    """:func:`load_deploy_model` on a deploy CLI's parsed arguments."""
+    return load_deploy_model(args.cfg, scale=args.scale, weights=args.weights, ch=args.ch,
+                             nc=args.nc, seed=args.seed, device=args.device,
+                             model_kind=args.model, ckpt=args.ckpt, which=args.which,
+                             torch_ckpt=args.torch_ckpt)
 
 
 def quantize_from_paths(model, cfg: PredictorConfig, paths: Sequence[str], max_batches: int,
@@ -220,8 +274,7 @@ def main(argv=None):
     p.add_argument("--images", type=str, required=True, help="image dir or file")
     p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
     p.add_argument("--scale", type=str, default="n")
-    p.add_argument("--weights", type=str, default=None,
-                   help="port state_dict (.pt); default: seeded init")
+    add_source_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--batch", type=int, default=32)
@@ -236,9 +289,18 @@ def main(argv=None):
     p.add_argument("--class-aware", action="store_true", help="class-aware NMS")
     p.add_argument("--topk", type=int, default=PredictorConfig.pre_nms_topk,
                    help="prefilter cap (pre_nms_topk): the NMS sweep length")
+    p.add_argument("--blocked-topk", type=int, default=0,
+                   help="opt-in two-stage candidate selection: the top N of each 128-anchor "
+                        "block, then the exact top-k of those (YOLO11); 0 = exact (default)")
     p.add_argument("--int8-calib", type=int, default=0, metavar="N",
                    help="serve int8 (nn/quant.py): calibrate activation scales on the first "
                         "N input batches, then quantize every ConvBNAct (0 = off)")
+    p.add_argument("--save-viz", type=str, default=None, metavar="DIR",
+                   help="write annotated PNGs (class-coloured boxes + scores on the original "
+                        "images) to DIR")
+    p.add_argument("--names", type=str, default=None,
+                   help="class-name file for --save-viz: one name per line, a JSON array, or "
+                        "a COCO annotations json")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     args = p.parse_args(argv)
 
@@ -249,13 +311,12 @@ def main(argv=None):
     if not paths:
         raise SystemExit(f"no images under {root}")
 
-    model = load_deploy_model(args.cfg, scale=args.scale, weights=args.weights, ch=args.ch,
-                              nc=args.nc, seed=args.seed, device=args.device,
-                              model_kind=args.model)
+    model = load_from_args(args)
     cfg = PredictorConfig(
         img_size=args.imgsz, batch_size=args.batch, conf_threshold=args.conf,
         iou_threshold=args.iou, letterbox=not args.stretch,
-        class_aware_nms=args.class_aware, pre_nms_topk=args.topk)
+        class_aware_nms=args.class_aware, pre_nms_topk=args.topk,
+        blocked_topk=args.blocked_topk)
     if args.int8_calib:
         model = quantize_from_paths(model, cfg, paths, args.int8_calib, args.device)
     predictor = Predictor(model, cfg, device=args.device)
@@ -264,6 +325,15 @@ def main(argv=None):
     results = list(predictor.predict_paths(paths))
     dt = time.perf_counter() - t0
     print(f"{len(paths)} images in {dt:.2f}s ({len(paths) / dt:.1f} img/s) on {predictor.device}")
+    if args.save_viz:
+        from yolo_scratch_tpu_torch.utils.viz import load_class_names, save_annotated
+
+        written = save_annotated(results, args.save_viz,
+                                 class_names=load_class_names(args.names))
+        print(f"wrote {len(written)} annotated images to {args.save_viz}")
+    elif args.names:
+        print("warning: --names only labels --save-viz renderings; the JSON output keeps "
+              "integer labels. Pass --save-viz DIR to use it.")
     if args.out:
         Path(args.out).write_text(json.dumps(results))
         print(f"wrote {args.out}")

@@ -75,9 +75,10 @@ def bbox_iou(
 
 
 def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """All-pairs plain IoU, xyxy. (N, 4) x (M, 4) -> (N, M); eps on the union."""
-    b1 = boxes1[:, None, :]
-    b2 = boxes2[None, :, :]
+    """All-pairs plain IoU, xyxy. (..., N, 4) x (..., M, 4) -> (..., N, M);
+    eps on the union."""
+    b1 = boxes1[..., :, None, :]
+    b2 = boxes2[..., None, :, :]
     x1 = torch.maximum(b1[..., 0], b2[..., 0])
     y1 = torch.maximum(b1[..., 1], b2[..., 1])
     x2 = torch.minimum(b1[..., 2], b2[..., 2])

@@ -8,11 +8,14 @@ mask.
 
 ``nms_impl``: ``"kernel"`` runs the hand-written CUDA sweeps of
 ``ops/nms_kernels.py`` (their plain versions on CPU tensors); ``"pairwise"``
-runs ``ops/nms.py::nms`` (the JAX package's ``"xla"`` path).
+runs ``ops/nms.py::nms`` (the JAX package's ``"xla"`` path); ``"tiled"``
+runs ``ops/nms.py::batched_nms_tiled`` (PyTorch ops, the JAX package's
+``"tiled"``).
 
 The JAX package selects rows with one-hot contractions (TPU gathers are
-slow); they are exact, so plain gathers give the same values here. Ties in
-every top-k are broken lower index first, as XLA's ``top_k`` does.
+slow); they are exact, so plain gathers give the same values here. Every
+top-k orders as XLA's ``top_k`` does: the floats' total order (-0.0 below
++0.0), ties lower index first (``ops/nms.py::stable_topk``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ import torch
 
 from yolo_scratch_tpu_torch.ops.anchors import make_anchors
 from yolo_scratch_tpu_torch.ops.boxes import dist2bbox, xywh2xyxy
-from yolo_scratch_tpu_torch.ops.nms import gather_topk_detections_batched, nms, stable_topk
+from yolo_scratch_tpu_torch.ops.nms import (
+    batched_nms_tiled,
+    gather_topk_detections_batched,
+    nms,
+    stable_topk,
+)
 from yolo_scratch_tpu_torch.ops.nms_kernels import (
     _cap,
     _class_offset,
@@ -30,15 +38,39 @@ from yolo_scratch_tpu_torch.ops.nms_kernels import (
 )
 from yolo_scratch_tpu_torch.nn.modules import dfl_expectation
 
-NMS_IMPLS = ("kernel", "pairwise")
+NMS_IMPLS = ("kernel", "pairwise", "tiled")
+LANES = 128  # the block width of the blocked top-k
 
 
 def topk_scores(scores: torch.Tensor, k: int, blocked: int = 0):
     """(B, A) -> (top_scores (B, k), top_idx (B, k)), score-descending,
-    ties lower index first. Only the exact path is ported."""
-    if blocked:
-        raise NotImplementedError("blocked top-k selection is not ported")
-    return stable_topk(scores, min(k, scores.shape[1]))
+    ties lower index first.
+
+    ``blocked=0``: the exact top-k. ``blocked=kb>0``: two stages, as the
+    JAX function: the top-kb of each 128-anchor block (the scores padded
+    to whole blocks with -inf), then the exact top-k over those survivors,
+    their positions mapped back to anchor indices with a gather. It equals
+    the exact top-k unless one block holds more than kb of it (dense
+    scenes do: the JAX package ships the exact path). Past the survivor
+    count the result is padded with -inf at index 0. A padded lane can be
+    selected among -inf rows; its index is then >= A."""
+    B, A = scores.shape
+    k = min(k, A)
+    if not blocked:
+        return stable_topk(scores, k)
+    nblk = -(-A // LANES)
+    kb = min(blocked, LANES)
+    padded = torch.cat([scores, scores.new_full((B, nblk * LANES - A), float("-inf"))], 1)
+    loc_scores, loc_idx = stable_topk(padded.reshape(B, nblk, LANES), kb)  # (B, nblk, kb)
+    base = torch.arange(nblk, device=scores.device)[None, :, None] * LANES
+    glob_idx = (base + loc_idx).reshape(B, nblk * kb)
+    top_scores, pos = stable_topk(loc_scores.reshape(B, nblk * kb), min(k, nblk * kb))
+    top_idx = torch.gather(glob_idx, 1, pos)
+    pad = k - top_scores.shape[1]
+    if pad > 0:  # k above the survivor count
+        top_scores = torch.cat([top_scores, top_scores.new_full((B, pad), float("-inf"))], 1)
+        top_idx = torch.cat([top_idx, top_idx.new_zeros(B, pad)], 1)
+    return top_scores, top_idx
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,8 +95,7 @@ def _prefilter_batched(decoded: torch.Tensor, conf_threshold: float, pre_nms_top
 
 def _check_impl(nms_impl: str) -> None:
     if nms_impl not in NMS_IMPLS:
-        raise ValueError(f"nms_impl {nms_impl!r}: choose from {NMS_IMPLS} "
-                         "(the tiled sweep is not ported)")
+        raise ValueError(f"nms_impl {nms_impl!r}: choose from {NMS_IMPLS}")
 
 
 def _keep_batched(boxes, scores, valid, labels, *, iou_threshold, max_det, class_aware,
@@ -74,6 +105,10 @@ def _keep_batched(boxes, scores, valid, labels, *, iou_threshold, max_det, class
         return nms_kernel_batched(boxes, scores, valid, iou_threshold=iou_threshold,
                                   max_det=max_det, class_ids=labels,
                                   class_aware=class_aware, presorted=True)
+    if nms_impl == "tiled":
+        return batched_nms_tiled(boxes, scores, valid, class_ids=labels,
+                                 iou_threshold=iou_threshold, max_det=max_det,
+                                 class_aware=class_aware)
     return torch.stack([
         nms(b, s, iou_threshold=iou_threshold, max_det=max_det, valid=v, class_ids=c,
             class_aware=class_aware, presorted=True)
@@ -113,11 +148,13 @@ def postprocess(
 
 
 def select_candidates(feats, nc: int, strides, reg_max: int = 16,
-                      conf_threshold: float = 0.25, pre_nms_topk: int = 1000):
+                      conf_threshold: float = 0.25, pre_nms_topk: int = 1000,
+                      blocked_topk: int = 0):
     """Raw NHWC Detect maps -> the top-``pre_nms_topk`` candidates per
     image, ranked on the raw max class logit in the maps' own dtype (ties
-    lower anchor first), decoded AFTER selection: (boxes xyxy f32 (B, K, 4),
-    scores f32 (B, K), labels int32 (B, K), valid (B, K), conf_ok (B, A)).
+    lower anchor first; ``blocked_topk`` selects by :func:`topk_scores`'s
+    two stages), decoded AFTER selection: (boxes xyxy f32 (B, K, 4), scores
+    f32 (B, K), labels int32 (B, K), valid (B, K), conf_ok (B, A)).
 
     Only the K selected rows go to f32; the DFL integral and dist2bbox run
     on them instead of on all anchors."""
@@ -132,7 +169,9 @@ def select_candidates(feats, nc: int, strides, reg_max: int = 16,
     # the conf gate in f32, exactly as the unfused path computes it
     conf_ok = torch.sigmoid(max_logit.to(torch.float32)) > conf_threshold
     top_logits, top_idx = topk_scores(max_logit.masked_fill(~conf_ok, float("-inf")),
-                                      pre_nms_topk)
+                                      pre_nms_topk, blocked=blocked_topk)
+    if blocked_topk:  # a pad lane (index >= A) marks an invalid row: read row A-1 there
+        top_idx = top_idx.clamp(max=x.shape[1] - 1)
     top_logits = top_logits.to(torch.float32)
     top_valid = torch.isfinite(top_logits)
     top_scores = torch.sigmoid(top_logits).masked_fill(~top_valid, 0.0)
@@ -156,6 +195,7 @@ def postprocess_from_feats(
     pre_nms_topk: int = 1000,
     class_aware: bool = False,
     nms_impl: str = "pairwise",
+    blocked_topk: int = 0,
     with_cand_count: bool = False,
 ):
     """Fused select-then-decode + NMS from raw head maps: the same results
@@ -164,7 +204,7 @@ def postprocess_from_feats(
     logit. The batched NMS runs at every batch size."""
     _check_impl(nms_impl)
     boxes, scores, labels, valid, conf_ok = select_candidates(
-        feats, nc, strides, reg_max, conf_threshold, pre_nms_topk)
+        feats, nc, strides, reg_max, conf_threshold, pre_nms_topk, blocked_topk)
     keep = _keep_batched(boxes, scores, valid, labels, iou_threshold=iou_threshold,
                          max_det=max_det, class_aware=class_aware, nms_impl=nms_impl)
     out = _finish(boxes, scores, labels, keep, max_det, img_size)

@@ -173,7 +173,7 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     n = boxes.shape[-2]
     if n > _max_n():
         raise ValueError(f"N={n} exceeds the {_max_n()} boxes of the {_max_n() // 64} remv "
-                         "words the reduce holds")
+                         "words the reduce holds; nms_impl='tiled' takes any N")
 
 
 @functools.cache

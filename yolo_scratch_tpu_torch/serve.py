@@ -26,7 +26,8 @@ Endpoints:
   GET  /healthz             {"ok": true, "model": ..., "stats": {...}}
 
 Run: ``python -m yolo_scratch_tpu_torch.serve --weights w.pt --port 8008``
-(``--artifact m.pt2`` serves an exported program instead; ``--device cpu``
+(or ``--ckpt <dir> [--which best|last]``, or ``--torch-ckpt ref.pt``;
+``--artifact m.pt2`` serves an exported program instead; ``--device cpu``
 serves on the CPU).
 """
 
@@ -358,13 +359,13 @@ def main(argv=None, ready=None):
     port off it and call ``shutdown()`` to stop it)."""
     import argparse
 
+    from yolo_scratch_tpu_torch.infer import add_source_args
     from yolo_scratch_tpu_torch.models.builder import CONFIGS
 
     p = argparse.ArgumentParser(description="Batched detection serving daemon (PyTorch/CUDA)")
     p.add_argument("--cfg", type=str, default=str(CONFIGS / "yolo11_crater.json"))
     p.add_argument("--scale", type=str, default="n")
-    p.add_argument("--weights", type=str, default=None,
-                   help="port state_dict (.pt); default: seeded init")
+    add_source_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model", type=str, default="auto", choices=["auto", "yolo11", "yolox"])
     p.add_argument("--imgsz", type=int, default=640)
@@ -396,10 +397,10 @@ def main(argv=None, ready=None):
     args = p.parse_args(argv)
 
     if args.artifact:
-        if args.weights or args.int8_calib_dir:
-            raise SystemExit("--artifact is exclusive with --weights/--int8-calib-dir: the "
-                             "artifact carries its weights (export int8 with the export CLI's "
-                             "--int8-calib-dir)")
+        if args.weights or args.ckpt or args.torch_ckpt or args.int8_calib_dir:
+            raise SystemExit("--artifact is exclusive with --weights/--ckpt/--torch-ckpt/"
+                             "--int8-calib-dir: the artifact already carries its weights "
+                             "(export int8 with the export CLI's --int8-calib-dir)")
         from yolo_scratch_tpu_torch.export import (
             ArtifactPredictor,
             load_artifact,
@@ -421,11 +422,9 @@ def main(argv=None, ready=None):
                   f"{pred.cfg.img_size}, ch {pred.in_ch}, device {pred.device}, prep "
                   f"{'letterbox' if pred.cfg.letterbox else 'stretch'})")
     else:
-        from yolo_scratch_tpu_torch.infer import Predictor, load_deploy_model, quantize_from_paths
+        from yolo_scratch_tpu_torch.infer import Predictor, load_from_args, quantize_from_paths
 
-        model = load_deploy_model(args.cfg, scale=args.scale, weights=args.weights, ch=args.ch,
-                                  nc=args.nc, seed=args.seed, device=args.device,
-                                  model_kind=args.model)
+        model = load_from_args(args)
         cfg = PredictorConfig(img_size=args.imgsz, batch_size=args.batch,
                               conf_threshold=args.conf, iou_threshold=args.iou,
                               class_aware_nms=args.class_aware, pre_nms_topk=args.topk)

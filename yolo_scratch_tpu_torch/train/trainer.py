@@ -166,9 +166,11 @@ class Trainer:
         draw = iter(train_loader)
         next(draw)
         draw.close()
+        # the state first, then the overlay (the JAX order): the EMA starts
+        # from the init, the live parameters from the pretrained weights
+        self.state = create_train_state(model, tx, use_ema=config.use_ema)
         if config.pretrained:
             self._apply_pretrained(config.pretrained)
-        self.state = create_train_state(model, tx, use_ema=config.use_ema)
         if mesh is not None:
             replicate(state_tensors(self.state), mesh)
         self._train_step = self._build_step(loss_fn)
@@ -214,9 +216,10 @@ class Trainer:
             print(msg)
 
     def _apply_pretrained(self, path: str) -> None:
-        """Overlay pretrained weights onto the model (the reference's
-        strict=False partial load): a checkpoint dir of this package (best,
-        else last) or a reference ``.pt`` file."""
+        """Overlay pretrained weights onto the state's live model (the
+        reference's strict=False partial load), in place, leaving the EMA
+        and the optimizer state as created: a checkpoint dir of this
+        package (best, else last) or a reference ``.pt`` file."""
         from yolo_scratch_tpu_torch.utils.weights import merge_pretrained, reference_state_dict
 
         p = Path(path)

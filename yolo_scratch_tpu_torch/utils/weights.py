@@ -12,9 +12,12 @@
   scales f32 as they are (``ConvBNAct`` loads them into a block that has
   none).
 
-A YOLOX tree (top-level ``backbone``) keeps its tokens: the port's YOLOX
-modules carry the flax names (``backbone/dark2_csp/m_0_cv1`` ->
-``backbone.dark2_csp.m_0_cv1``).
+A YOLOX or legacy tree (top-level ``backbone``) keeps its tokens: the
+port's YOLOX and legacy modules carry the flax names
+(``backbone/dark2_csp/m_0_cv1`` -> ``backbone.dark2_csp.m_0_cv1``,
+``backbone/stage_p2/blocks_0_0`` -> ``backbone.stage_p2.blocks_0_0``, and
+the legacy head's biased convs ``head/bbox_0_1/{kernel,bias}`` ->
+``head.bbox_0_1.{weight,bias}``).
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ def reference_state_dict(path) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items() if "dfl" not in k.split(".")}
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
+def load_reference_checkpoint(model: torch.nn.Module, path,
+                              state: Mapping[str, torch.Tensor] | None = None) -> torch.nn.Module:
     """Load a reference-layout checkpoint (``last.pt``/``best.pt``, or a bare
     ``state_dict``) into ``model`` in place, as the JAX package's
     ``utils/torch_import.py::load_reference_checkpoint`` reads one: the
@@ -93,8 +97,9 @@ def load_reference_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
     itself; the reference's frozen DFL conv (``dfl`` keys) has no
     counterpart and is dropped. Tensors only (``weights_only``). Every other
     key must match; only ``num_batches_tracked``, which the JAX tree does not
-    carry either, may be missing."""
-    sd = reference_state_dict(path)
+    carry either, may be missing. ``state``: the file's
+    :func:`reference_state_dict`, when the caller has read it already."""
+    sd = reference_state_dict(path) if state is None else state
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
