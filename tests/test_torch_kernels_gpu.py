@@ -26,6 +26,10 @@ card.
   equals the plain sweep, exactly; the tiled sweep (PyTorch ops) on the
   card equals kernel #1 and the CPU, exactly, and past kernel #1's 4096
   boxes, where the kernel refuses, its plain version.
+* Slice H: a ``flat_opt`` train step on the card (its parameters views of
+  one 256-byte-aligned buffer) against the per-leaf step, at
+  ``chip_smoke.py`` phase 7(a)'s tolerances; ``overfit_check`` validates
+  every epoch through kernel #1.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -563,3 +567,42 @@ def test_tiled_sweep_on_the_card_past_kernel_1s_limit(cuda):
         K.nms_sweep_batched(boxes, valid, 0.45)
     got = batched_nms_tiled(boxes, scores, valid, iou_threshold=0.45, max_det=N)
     assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
+
+
+def test_flat_opt_step_on_the_card_equals_per_leaf(cuda):
+    """One step of the crater YOLO11n at 64 px, B=4, f32 with TF32 off, in
+    ``chip_smoke.deterministic_mode``: the ``flat_opt`` state against the
+    per-leaf state from the same weights on the same batch, held by
+    ``check_step_pair`` (phase 7(a)'s limits). Parameters at 4-byte offsets
+    of one buffer faulted there ("misaligned address")."""
+    import copy
+
+    from chip_smoke import _train_setup, check_step_pair, deterministic_mode, step_record
+    from yolo_scratch_tpu_torch.data.loader import Loader
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+    from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
+
+    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=0,
+                         device=cuda)
+    batch = next(iter(Loader(SyntheticDataset(n=4, img_size=64), 4, max_gt=8, prefetch=0)))
+    runs = {}
+    with deterministic_mode():
+        for flat in (False, True):
+            m = copy.deepcopy(model)
+            state, step = _train_setup(m, flat_opt=flat)
+            lr = state.tx.lr(state.opt_state.count)
+            state, metrics = step(state, batch)
+            runs[flat] = step_record(m, state, metrics, lr)
+    errs = check_step_pair(runs[True], runs[False], "flat vs per-leaf")
+    assert errs["loss"] <= 1e-4 and errs["grad"] <= 1e-3
+
+
+def test_overfit_check_validates_through_kernel_1(cuda):
+    """Two epochs of ``overfit_check`` on the card: two val batches an
+    epoch, each one launch of kernel #1, and the JAX script's JSON keys."""
+    from yolo_scratch_tpu_torch import overfit_check
+
+    K.reset_launches()
+    final = overfit_check.main(2)
+    assert K.launches["nms_sweep_batched"] == 4
+    assert {"mAP50", "precision", "recall", "loss"} <= set(final)

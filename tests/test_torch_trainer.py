@@ -92,6 +92,7 @@ def test_checkpoint_best_policy(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "ck"))
     bl, bm, saved = mgr.save_epoch(trainer.state, 0, {}, {"mAP50": 0.5, "loss": 1.0},
                                    float("inf"), 0.0)
+    mgr.wait()  # the write runs in the background
     assert saved and bm == 0.5 and (tmp_path / "ck" / "best.pt").exists()
     bl, bm, saved = mgr.save_epoch(trainer.state, 1, {}, {"mAP50": 0.3, "loss": 0.5}, bl, bm)
     assert not saved and bm == 0.5

@@ -32,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from yolo_scratch_tpu_torch.parallel.collectives import broadcast_flat
+from yolo_scratch_tpu_torch.train.state import ema_as_tree
 
 
 @dataclass
@@ -103,9 +104,7 @@ def state_tensors(state) -> list:
     must hold alike: parameters, BN buffers, the EMA and Adam's moments."""
     model = state.model
     out = [*model.parameters(), *model.buffers(), *state.opt_state.mu, *state.opt_state.nu]
-    if state.ema is not None:
-        out += list(state.ema.values())
-    return out
+    return out + list((ema_as_tree(state) or {}).values())
 
 
 def make_sharded_train_step(model, loss_cfg, mesh: Mesh, loss_fn=None, **step_kwargs):

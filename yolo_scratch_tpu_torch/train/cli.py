@@ -155,6 +155,14 @@ def make_datasets(args):
     return ds, 3, len(ds.class_names) or 80
 
 
+def split_indices(n: int, seed: int, val_split: float):
+    """(train, val) indices of a dataset of ``n``: the seeded split (the
+    reference's torch.randperm(seed=42), with a numpy PRNG)."""
+    idx = np.random.RandomState(seed).permutation(n)
+    n_val = int(n * val_split)
+    return idx[: n - n_val], idx[n - n_val:]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
@@ -213,11 +221,7 @@ def _train(args, mesh):
     say = print if mesh is None or mesh.is_writer else (lambda *a, **k: None)
     dev = resolve_device(args.device) if mesh is None else mesh.device
     ds, ch, nc = make_datasets(args)
-    n = len(ds)
-    # seeded split (the reference's torch.randperm(seed=42), with a numpy PRNG)
-    idx = np.random.RandomState(args.seed).permutation(n)
-    n_val = int(n * args.val_split)
-    train_idx, val_idx = idx[: n - n_val], idx[n - n_val:]
+    train_idx, val_idx = split_indices(len(ds), args.seed, args.val_split)
     if mesh is not None and mesh.process_local:
         # this process's slice, trimmed so every process steps the same
         # number of batches (each step is a collective)

@@ -67,10 +67,20 @@ class AdamWState:
     nu: List[torch.Tensor]
 
 
+# A tensor longer than _NORM_LONG is normed in chunks of _NORM_CHUNK: the
+# CPU's f32 norm of one long vector drifts (1.2e-5 relative at 2**20
+# elements, 6.2e-5 at YOLO11n's 3.07M flat vector; 1.8e-7 in 2**16 chunks),
+# and so would a long leaf of a per-leaf tree (YOLOX-s's 2.36M-element 3x3
+# convs) against optax
+_NORM_LONG, _NORM_CHUNK = 2 ** 20, 2 ** 16
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element of every tensor: the
     norm of the per-tensor norms (one multi-tensor launch)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+    parts = [c for t in tensors
+             for c in (t.reshape(-1).split(_NORM_CHUNK) if t.numel() > _NORM_LONG else (t,))]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(parts)))
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -81,6 +91,13 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
     norm = global_norm(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return torch._foreach_mul(list(grads), factor)
+
+
+def bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` as optax takes it: in f32 throughout (XLA's f32
+    ``pow``), which for b2 = 0.999 lies up to 2e-5 from the f64 value
+    rounded once."""
+    return float(_F32(1.0) - _F32(decay) ** _F32(count))
 
 
 class AdamW:
@@ -119,9 +136,8 @@ class AdamW:
         torch._foreach_add_(state.mu, g, alpha=1 - b1)
         torch._foreach_mul_(state.nu, b2)
         torch._foreach_addcmul_(state.nu, g, g, value=1 - b2)
-        # bias corrections as optax takes them: 1 - decay**count, in f32
-        mu_hat = torch._foreach_div(state.mu, float(_F32(1.0 - b1 ** count)))
-        denom = torch._foreach_div(state.nu, float(_F32(1.0 - b2 ** count)))
+        mu_hat = torch._foreach_div(state.mu, bias_correction(b1, count))
+        denom = torch._foreach_div(state.nu, bias_correction(b2, count))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mu_hat, denom)
@@ -131,14 +147,39 @@ class AdamW:
         state.count = count
 
 
+class FlatAdamW(AdamW):
+    """The same chain on one raveled vector, as ``optax.flatten`` wraps it:
+    the moments are (N,) tensors over the parameters in order, the global
+    norm is taken over their concatenation, and the update is unraveled onto
+    the parameters. A single (N,) parameter (``create_train_state(...,
+    flat_opt=True)``'s master vector) is updated in place with no copy."""
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
+        n = sum(p.numel() for p in params)
+        p0 = params[0]
+        return AdamWState(0, [p0.new_zeros(n)], [p0.new_zeros(n)])
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
+               params: Sequence[torch.Tensor]) -> None:
+        if len(params) == 1 and params[0].dim() == 1:
+            return super().update([grads[0].reshape(-1)], state, params)
+        flat = torch.cat([p.reshape(-1) for p in params])
+        super().update([torch.cat([g.reshape(-1) for g in grads])], state, [flat])
+        torch._foreach_copy_(list(params), unravel(flat, params))
+
+
+def unravel(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Views of the (N,) ``flat`` shaped as ``like``, in order (the inverse
+    of ``torch.cat([t.reshape(-1) for t in like])``)."""
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
 def make_optimizer(learning_rate: float | Schedule = 1e-3, weight_decay: float = 5e-4,
                    clip_norm: float = 10.0, b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8, flatten: bool = False) -> AdamW:
     """clip-by-global-norm -> AdamW (torch-default betas/eps).
 
-    ``flatten=True`` (the TPU build's A/B of one raveled update vector, which
-    no CLI flag reaches) raises: it waits for ROADMAP C3's ``flat_opt``."""
-    if flatten:
-        raise NotImplementedError("flatten=True (one raveled update vector) is not ported "
-                                  "(ROADMAP C3, flat_opt)")
-    return AdamW(learning_rate, weight_decay, clip_norm, b1, b2, eps)
+    ``flatten=True`` (``optax.flatten`` of the chain in the JAX package):
+    :class:`FlatAdamW`, the same math on one raveled (N,) vector."""
+    return (FlatAdamW if flatten else AdamW)(learning_rate, weight_decay, clip_norm, b1, b2, eps)

@@ -190,6 +190,7 @@ class Trainer:
             match_thresholds=self._match_thresholds,
             matmul_precision=config.val_matmul_precision, mesh=mesh)
 
+        # checkpoint writes run in the background, overlapping the next epoch
         self.ckpt = CheckpointManager(config.save_dir, mesh) if config.save_dir else None
         self.logger = None
         if config.save_dir and self.is_writer:
@@ -410,6 +411,16 @@ class Trainer:
         return out
 
     def fit(self, resume: bool = True) -> Dict[str, Any]:
+        """Train from the start (or, with ``resume``, from the checkpoint's
+        next epoch). The last background checkpoint write has landed when
+        this returns or raises."""
+        try:
+            return self._fit(resume)
+        finally:
+            if self.ckpt is not None:
+                self.ckpt.wait()
+
+    def _fit(self, resume: bool) -> Dict[str, Any]:
         # fresh-run defaults first: a reused Trainer must not carry a stale
         # plateau clock, best-so-far gates or start epoch into this run;
         # resume() then restores the persisted values
