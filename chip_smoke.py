@@ -139,6 +139,25 @@ Phases (any failure raises and exits non-zero):
    batch of each Predictor (B=8, K=512, class-aware) equal to the plain
    sweep, with a detection. Kernel #1's counter
    is zeroed before each main path and read after.
+13. slice I, the measurement entry points (``yolo_scratch_tpu_torch/bench/``
+   and ``entry.py``), each bench's JSON line printed as it ends, kernel #1's
+   counter zeroed just before each bench and read just after: (a)
+   ``entry()``'s f32 forward + decode at 640 on the card against the CPU,
+   boxes and scores each within 1e-4 of max|ref|; (b) the headline
+   (``python -m yolo_scratch_tpu_torch.bench``) at its defaults, B=128, both
+   rows, nscan 8, 2 windows of its 3: kernel #1's launches equal the batches
+   it swept; (c) one B=128 batch of its program at conf 0 per row equal to
+   the same maps through the plain sweep, exactly; (d) ``BENCH_INT8=1`` on
+   the crater row (nscan 2, one window); (e) ``latency``, ``scale`` (YOLOX-s,
+   YOLO11s), ``breakdown`` (5 calls a window), ``export`` (nscan 2),
+   ``int8_scales --scales m`` (B=32, nscan 1), ``e2e`` (64 files), one
+   ``serving`` cell (16 clients, 5 ms, 5 s; no failed request), ``eval`` (512
+   images of a COCO-shaped model whose scores pass 0.001, its ground truth
+   near its detections: the device's TP marks accumulated as the host
+   accumulates give the host matcher's mAP50-95 exactly, above 0, and
+   ``metrics_from_marks`` gives it too unless a TP and an FP share a score,
+   which the two accumulations order differently) and ``ingest`` (32
+   files).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -150,6 +169,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -162,7 +182,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from yolo_scratch_tpu_torch import entry as ENTRY
 from yolo_scratch_tpu_torch import probe_fused_bottleneck as P
+from yolo_scratch_tpu_torch.bench import breakdown as BREAK
+from yolo_scratch_tpu_torch.bench import common as BC
+from yolo_scratch_tpu_torch.bench import e2e as E2E
+from yolo_scratch_tpu_torch.bench import eval as EVB
+from yolo_scratch_tpu_torch.bench import export as BEXP
+from yolo_scratch_tpu_torch.bench import headline as HL
+from yolo_scratch_tpu_torch.bench import ingest as ING
+from yolo_scratch_tpu_torch.bench import int8_scales as I8S
+from yolo_scratch_tpu_torch.bench import latency as LAT
+from yolo_scratch_tpu_torch.bench import scale as SCALE
+from yolo_scratch_tpu_torch.bench import serving as SERVE_B
 from yolo_scratch_tpu_torch.infer import (
     Predictor,
     PredictorConfig,
@@ -226,6 +258,7 @@ F32_FLOP_PER_S = 67e12
 OPS_PER_IOU = 14
 IOU = 0.45
 BATCH, IMGSZ = 32, 640  # the Predictor's defaults: the main path's shape
+HEADLINE_B = 128  # the headline bench's batch (bench.py's)
 # the kernels one NMS wrapper call launches: the IoU mask, then the reduce
 NMS_SYMBOLS = ("nms_iou_mask_kernel", "nms_reduce_kernel")
 
@@ -289,15 +322,17 @@ def kernel_phase(dev) -> dict:
     """Each kernel vs its plain version; timed at the main path's shape
     (B=32/N=512 and B=1/N=512) and at N=2048, on seeded boxes ~90% valid,
     and at B=32/N=512 with none valid, as the main path's seeded model
-    gives at conf 0.25."""
+    gives at conf 0.25; and #1 at the headline bench's B=128/N=512, ~90%
+    and none valid."""
     results = {}
     cases = [("nms_sweep_batched", (32, 512)), ("nms_sweep_batched", (32, 2048)),
-             ("nms_sweep", (512,)), ("nms_sweep", (2048,)), ("nms_sweep_batched", (32, 512))]
+             ("nms_sweep", (512,)), ("nms_sweep", (2048,)), ("nms_sweep_batched", (32, 512)),
+             ("nms_sweep_batched", (HEADLINE_B, 512)), ("nms_sweep_batched", (HEADLINE_B, 512))]
     for i, (name, shape) in enumerate(cases):
         spec = KERNELS[name]
         wrapper = getattr(K, name)
         boxes, valid = seeded_boxes(100 + i, shape, dev)
-        none_valid = i == len(cases) - 1
+        none_valid = i in (4, 6)
         if none_valid:
             valid = torch.zeros_like(valid)
         got = wrapper(boxes, valid, IOU)
@@ -318,7 +353,7 @@ def kernel_phase(dev) -> dict:
             f"{plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
             f"({bound_by}); no single PyTorch call computes greedy NMS, so no library "
             f"yardstick")
-        if shape[-1] == 512 and not none_valid:  # the main path's K
+        if shape in ((BATCH, 512), (512,)) and not none_valid:  # the Predictor's shapes
             results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return results
@@ -550,11 +585,11 @@ EVAL_KEYS = (["loss", "precision", "recall", "mAP50", "mAP50-95"]
 LOSS_KEYS = ("loss", "box_loss", "cls_loss", "dfl_loss")
 
 
-def eval_model():
-    """The crater YOLO11n as tests/test_torch_infer.py builds it: seeded
-    init, random BN statistics, class-bias priors zeroed (the prior alone
-    puts every score near 1.6e-4, below any gate)."""
-    model = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=7)
+def eval_model(cfg: str = "yolo11_crater.json", ch: int = 1, nc: int = 5):
+    """The crater YOLO11n as tests/test_torch_infer.py builds it (or another
+    config's): seeded init, random BN statistics, class-bias priors zeroed
+    (the prior alone puts every score near 1.6e-4, below any gate)."""
+    model = build_yolo11(CONFIGS / cfg, ch=ch, nc=nc, scale="n", seed=7)
     rng = np.random.RandomState(7)
     with torch.no_grad():
         for m in model.modules():
@@ -2654,6 +2689,141 @@ def slice_h_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# slice I (phase 13): the measurement entry points
+HEADLINE_WINDOWS = 2  # of bench.py's 3, for the script's time limit
+
+
+@contextlib.contextmanager
+def bench_env(**knobs):
+    """``bench.py``'s BENCH_* knobs set to ``knobs`` and the others unset,
+    restored after."""
+    names = ("BENCH_BATCH", "BENCH_TOPK", "BENCH_NSCAN", "BENCH_INT8", "BENCH_COCO")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update({f"BENCH_{k}": str(v) for k, v in knobs.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def entry_check(dev) -> None:
+    """13(a): ``entry()``'s forward + decode (f32, TF32 off) on the card
+    against the CPU on one seeded 640 image: boxes and scores each within
+    1e-4 of their max|ref| (the f32 map tolerance of phase 4)."""
+    fn, (example,) = ENTRY.entry(dev)
+    if tuple(example.shape) != (1, IMGSZ, IMGSZ, 1) or example.device.type != "cuda":
+        raise AssertionError(f"entry()'s example: {tuple(example.shape)} on {example.device}")
+    x = torch.from_numpy(np.random.RandomState(13).rand(1, IMGSZ, IMGSZ, 1).astype(np.float32))
+    got = fn(x.to(dev)).cpu()
+    ref = ENTRY.entry("cpu")[0](x)
+    if tuple(got.shape) != (1, 8400, 9):
+        raise AssertionError(f"entry forward: {tuple(got.shape)}, want (1, 8400, 9)")
+    errs = [float((got[..., p] - ref[..., p]).abs().max() / ref[..., p].abs().max())
+            for p in (slice(0, 4), slice(4, None))]
+    if max(errs) > 1e-4:
+        raise AssertionError(f"entry() card vs CPU: boxes {errs[0]:.3g}, scores {errs[1]:.3g} "
+                             "of max|ref| (limit 1e-4)")
+    log(f"13(a) entry forward: {tuple(got.shape)} on the card, equal to the CPU's to "
+        f"{errs[0]:.3g} (boxes) / {errs[1]:.3g} (scores) of max|ref| (limit 1e-4)")
+
+
+def headline_plain_check(dev) -> None:
+    """13(c): one B=128 batch of the headline program per row at conf 0
+    (all 512 candidates of every image valid) against the same maps through
+    ``nms_sweep_batched_plain``, exactly."""
+    for name, _, ch, nc in ROWS:
+        model = BC.deploy_model(ch, nc, "n", IMGSZ, device=dev)
+        pred, _ = HL.deploy_program(model, HEADLINE_B, 512, dev, conf=0.0, img=IMGSZ)
+        x = BC.uint8_batches((HEADLINE_B, IMGSZ, IMGSZ, ch), dev, seed=13)
+        with torch.inference_mode():
+            feats = pred.forward_feats(x)
+            got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+        check_packed(got, HEADLINE_B, 300)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name}: B={HEADLINE_B} conf-0 detections differ from the "
+                                 "plain sweep")
+        log(f"13(c) {name}: the headline program at B={HEADLINE_B}, conf 0, equals the plain "
+            f"sweep ({int(got[..., 6].sum())} kept of {HEADLINE_B} x 512 valid candidates)")
+
+
+def slice_i_phase(dev, ident: str) -> dict:
+    """13: the measurement entry points on the card. Returns kernel #1's
+    launches over the benches' runs."""
+    t_phase = time.perf_counter()
+    entry_check(dev)
+    launches = 0
+
+    def run(label: str, fn, *args, **kw) -> dict:
+        nonlocal launches
+        t0 = time.perf_counter()
+        K.reset_launches()
+        out = fn(*args, **kw)  # prints the bench's JSON line
+        torch.cuda.synchronize()
+        n = K.launches["nms_sweep_batched"]
+        launches += n
+        if out["device"]["platform"] != "gpu" or out["device"]["count"] < 1:
+            raise AssertionError(f"{label}: its line names {out['device']}, not the card")
+        log(f"13 {label}: {time.perf_counter() - t0:.1f} s, kernel #1 launched {n} times")
+        out["_launches"] = n
+        return out
+
+    with bench_env():
+        hl = run("(b) headline", HL.main, [], windows=HEADLINE_WINDOWS)
+    for row in (hl, hl["coco_shaped"]):
+        if row["nms_launches"] != row["batches_swept"] or row["value"] <= 0:
+            raise AssertionError(f"{row['metric']}: kernel #1 launched {row['nms_launches']} "
+                                 f"times for {row['batches_swept']} batches")
+    if hl["_launches"] != hl["batches_swept"] + hl["coco_shaped"]["batches_swept"]:
+        raise AssertionError(f"headline: kernel #1's counter read {hl['_launches']}")
+    log(f"13(b) headline on {ident}: crater {hl['value']} img/s (median {hl['median']:.2f}, "
+        f"windows {[round(w, 2) for w in hl['windows']]}), COCO {hl['coco_shaped']['value']} "
+        f"(median {hl['coco_shaped']['median']:.2f}); valid detections per image "
+        f"{hl['valid_per_image']} / {hl['coco_shaped']['valid_per_image']} (seeded weights: "
+        "the sweep ran on empty sets)")
+    headline_plain_check(dev)
+    with bench_env(INT8=1, COCO=0, NSCAN=2):
+        q = run("(d) headline BENCH_INT8=1", HL.main, [], windows=1)
+    if not q["metric"].endswith("_int8") or q["nms_launches"] != q["batches_swept"]:
+        raise AssertionError(f"BENCH_INT8=1: {q['metric']}, {q['nms_launches']} launches")
+    lat = run("(e) latency", LAT.main, [])
+    for kind in ("yolox", "yolo11"):
+        run(f"(e) scale {kind} s", SCALE.main, ["--model", kind, "--scale", "s"])
+    run("(e) breakdown", BREAK.main, ["--iters", "5"])
+    ex = run("(e) export", BEXP.main, ["--nscan", "2"])
+    if min(ex["nms_launches"].values()) == 0:
+        raise AssertionError(f"export: kernel #1 launches {ex['nms_launches']}")
+    run("(e) int8_scales", I8S.main, ["--scales", "m", "--batch", "32", "--nscan", "1"])
+    e2e = run("(e) e2e", E2E.main, ["--n", "64", "--batch", "32"])
+    sv = run("(e) serving", SERVE_B.main, ["--clients", "16", "--wait-ms", "5", "--duration", "5"])
+    cell = sv["rows"][0]
+    if cell["errors"] or not cell["completed"]:
+        raise AssertionError(f"serving: {cell['errors']} failed of {cell['attempted']}")
+    model = eval_model("yolo11_coco.json", 3, 80).to(dev)
+    batches = EVB.batches_near_detections(model, range(4), 64, IMGSZ, 80, 24)
+    ev = run("(e) eval", lambda: BC.emit(EVB.run(model, images=512, batch=64, imgsz=IMGSZ,
+                                                  nc=80, per_class_host=False,
+                                                  batches=batches)))
+    agree, ties = ev["agreement_mAP50_95"], ev["tp_fp_score_ties"]
+    if agree["marks_host_ap"] != agree["host"] or not agree["host"] > 0:
+        raise AssertionError(f"eval: the device's marks give mAP50-95 {agree['marks_host_ap']} "
+                             f"against the host matcher's {agree['host']}")
+    if agree["device"] != agree["host"] and not ties:
+        raise AssertionError(f"eval: device mAP50-95 {agree['device']} against host "
+                             f"{agree['host']} with no TP and FP on one score")
+    run("(e) ingest", ING.cli, ["32", "1024"])
+    log(f"13(e) on {ident}: latency {lat['device_latency_ms']} ms (p50 "
+        f"{lat['launch_p50_ms']}, p99 {lat['launch_p99_ms']}); export ratio {ex['ratio']}; "
+        f"e2e host tier {e2e['host_tier']}; serving {cell['achieved_img_s']} img/s; eval "
+        f"mAP50-95: the device's marks {agree['marks_host_ap']} = host {agree['host']}, "
+        f"metrics_from_marks {agree['device']} ({ties} detections share a score with one of "
+        f"the other kind), {ev['detections_per_image']:.1f} detections an image")
+    log(f"slice I phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def across_cards(dev, ident: str) -> int:
     """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
     card a rank, (d) over every card, and the GPU test of a kernel launched
@@ -2711,18 +2881,20 @@ def main() -> int:
     mg = multigpu_phase(dev, ident)
     sg = slice_g_phase(dev, ident)
     sh = slice_h_phase(dev, ident)
+    si = slice_i_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
     # validation paths of both families, on phase 9's int8 Predictor,
     # artifacts, daemons and infer CLI, and on phase 10's mesh validation
     # (every rank's, summed) and shard_over replicas, and on phase 11's
     # checkpoint deploy (infer, export, serve) and blocked top-k paths, and on
-    # phase 12's trainer, val, overfit and eval_quant runs; #2 on the B=1
-    # postprocess of both families
+    # phase 12's trainer, val, overfit and eval_quant runs, and on phase 13's
+    # benches; #2 on the B=1 postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
                                       + ye["launches"] + yt["launches"] + dp["launches"]
-                                      + mg["launches"] + sg["launches"] + sh["launches"]),
+                                      + mg["launches"] + sg["launches"] + sh["launches"]
+                                      + si["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

@@ -30,6 +30,8 @@ card.
   one 256-byte-aligned buffer) against the per-leaf step, at
   ``chip_smoke.py`` phase 7(a)'s tolerances; ``overfit_check`` validates
   every epoch through kernel #1.
+* Slice I: the headline bench's program at B=128 (kernel #1's largest
+  batch on a shipped path) equals the plain sweep at conf 0, exactly.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -606,3 +608,29 @@ def test_overfit_check_validates_through_kernel_1(cuda):
     final = overfit_check.main(2)
     assert K.launches["nms_sweep_batched"] == 4
     assert {"mAP50", "precision", "recall", "loss"} <= set(final)
+
+
+@pytest.mark.parametrize("ch,nc", [(1, 5), (3, 80)], ids=["crater", "coco"])
+def test_headline_program_at_b128_sweeps_kernel_1_as_plain(cuda, ch, nc):
+    """Slice I: the headline bench's program (``bench/headline.py``) at its
+    B=128, 640, at conf 0 (all 512 candidates of every image valid): one
+    scan of one batch launches kernel #1 once, and the program's
+    postprocess of a batch's maps equals the same maps through the plain
+    sweep, exactly."""
+    from chip_smoke import plain_packed
+    from yolo_scratch_tpu_torch.bench import common as BC
+    from yolo_scratch_tpu_torch.bench.headline import deploy_program
+
+    model = BC.deploy_model(ch, nc, "n", 640, device=cuda)
+    pred, program = deploy_program(model, 128, 512, cuda, conf=0.0, img=640)
+    xs = BC.uint8_batches((1, 128, 640, 640, ch), cuda, seed=ch)
+    before = K.launches["nms_sweep_batched"]
+    (out,) = program(xs)
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before + 1
+    assert tuple(out[0].shape) == (128, 300, 4)
+    with torch.inference_mode():
+        feats = pred.forward_feats(xs[0])
+        got = pred.postprocess_feats(feats)
+        assert torch.equal(got, plain_packed(pred, feats))
+    assert int(got[..., 6].sum(1).min()) > 0

@@ -71,8 +71,14 @@ def prepare_images(paths: Sequence[str], cfg: PredictorConfig, in_ch: int):
         if (status != 0).any():
             raise IOError(f"decode failed: {[p for p, s in zip(paths, status) if s != 0]}")
         return imgs, meta
+    return prepare_images_cv2(paths, cfg, in_ch)
+
+
+def prepare_images_cv2(paths: Sequence[str], cfg: PredictorConfig, in_ch: int):
+    """The cv2 tier of :func:`prepare_images`: float32 / 255 images."""
     import cv2
 
+    S, ch = cfg.img_size, in_ch
     imgs = np.zeros((len(paths), S, S, ch), np.float32)
     meta = np.zeros((len(paths), 5), np.float32)
     flag = cv2.IMREAD_GRAYSCALE if ch == 1 else cv2.IMREAD_COLOR
