@@ -157,7 +157,24 @@ Phases (any failure raises and exits non-zero):
    accumulates give the host matcher's mAP50-95 exactly, above 0, and
    ``metrics_from_marks`` gives it too unless a TP and an FP share a score,
    which the two accumulations order differently) and ``ingest`` (32
-   files).
+   files);
+14. slice J, the JAX repo's last tools, kernel #1's counter zeroed just
+   before each path and read just after: (a) ``gen_crater_synth`` and
+   ``gen_coco_synth`` (nc=80) write 32 images each at 640, which
+   ``data/crater.py`` and ``data/coco.py`` read back; ``train.cli`` on the
+   COCO tree at 320, B=16, 2 epochs, plain and with mosaic + mixup: kernel
+   #1's launches equal the val batches times the epochs; (b)
+   ``quant_sqnr`` at 640, B=4, on the card and with ``--cpu``: the same
+   blocks, each SQNR within 1.5 dB and their mean difference within 0.1
+   dB (a 1e-6 jitter of the weights moves the CPU's by up to 0.9 dB); (c) ``profile_forward`` at B=128, 640,
+   plain and ``--full``: kernel #1 launched once a call (warm-up and
+   profiled), ``parse_trace``'s kernel total within 1% of
+   ``profile_forward``'s and its trace holding one sweep a profiled call;
+   one ``--full`` batch at conf 0 equal to the plain sweep, with
+   detections; (d) ``profile_train`` at B=64, 640, bf16, ``--scan 5``, then
+   ``train_roofline`` (device kernels, shares summing to 100% within 0.1,
+   a positive whole-step span) and ``parse_trace`` on its trace; (e)
+   ``ab_report`` on (a)'s two runs.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -177,6 +194,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2824,6 +2842,219 @@ def slice_i_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# slice J (phase 14): the JAX repo's last tools
+SLICE_J_IMAGES = 32  # each generated tree, at 640
+SLICE_J_TRAIN = ("--scale", "n", "--imgsz", "320", "--batch", "16", "--epochs", "2",
+                 "--workers", "0")
+# per block, the card against the CPU: one probe batch's SQNR moves by up to
+# 0.9 dB in the attention blocks when the f32 weights move by 1e-6 of
+# themselves (the jitter control of 14(b), PR 14's chip run)
+SQNR_CARD_CPU_DB = 1.5
+PROFILE_ITERS = 5  # profile_forward's and profile_train's defaults
+
+
+def generator_path(root) -> tuple:
+    """14(a): a crater and a COCO tree (nc=80) written by the generators and
+    read back by the port's readers; two 2-epoch ``train.cli`` runs on the
+    COCO tree at 320, B=16 (plain, then with mosaic and mixup), validating
+    through kernel #1, its counter zeroed just before each run and read
+    just after. Returns (the two runs' directories, kernel #1's launches)."""
+    from argparse import Namespace
+
+    from yolo_scratch_tpu_torch import gen_coco_synth, gen_crater_synth
+    from yolo_scratch_tpu_torch.train import cli as train_cli
+
+    crater, coco = root / "crater", root / "coco"
+    t0 = time.perf_counter()
+    n = gen_crater_synth.generate(str(crater), SLICE_J_IMAGES, IMGSZ, seed=0)
+    line = gen_coco_synth.generate(str(coco), SLICE_J_IMAGES, IMGSZ, nc=80, seed=0)
+    for tree, want in ((crater, (1, 5)), (coco, (3, 80))):
+        ds, ch, nc = train_cli.make_datasets(Namespace(data=str(tree), dataset="auto",
+                                                       imgsz=IMGSZ))
+        img, boxes, labels = ds[len(ds) - 1]
+        if ((ch, nc) != want or len(ds) != SLICE_J_IMAGES or img.shape != (IMGSZ, IMGSZ, ch)
+                or not len(boxes) or not np.isfinite(img).all()):
+            raise AssertionError(f"{tree.name} tree read back as {len(ds)} images, ch/nc "
+                                 f"{(ch, nc)}, {img.shape}, {len(boxes)} boxes")
+    log(f"14(a) generators: {n} crater images and {line['images']} COCO images "
+        f"({line['annotations']} boxes, nc=80) at {IMGSZ}, read back by data/crater.py and "
+        f"data/coco.py, {time.perf_counter() - t0:.1f} s")
+    n_val = int(SLICE_J_IMAGES * 0.2)
+    val_batches, epochs = -(-n_val // 16), 2
+    runs, launches = [], 0
+    for name, extra in (("noaug", []), ("recipe", ["--mosaic", "1.0", "--mixup", "1.0"])):
+        save = str(root / name)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--data", str(coco), *SLICE_J_TRAIN, *extra, "--save-dir", save])
+        torch.cuda.synchronize()
+        n = K.launches["nms_sweep_batched"]
+        hist = out["history"]
+        if n != val_batches * epochs or len(hist) != epochs or not all(
+                np.isfinite(h["train"]["loss"]) and np.isfinite(h["val"]["mAP50"]) for h in hist):
+            raise AssertionError(f"train.cli on the COCO tree ({name}): kernel #1 launched {n} "
+                                 f"times for {val_batches * epochs} val batches; {hist}")
+        launches += n
+        runs.append(save)
+        log(f"14(a) train.cli {name} on the generated COCO tree (nc=80, 320, B=16, {epochs} "
+            f"epochs): {time.perf_counter() - t0:.1f} s, kernel #1 launched {n} times, val "
+            f"mAP50 {hist[-1]['val']['mAP50']:.4f}")
+    return runs, launches
+
+
+def sqnr_path(ident: str) -> None:
+    """14(b): ``quant_sqnr`` at 640, B=4, two calibration batches, on the
+    card (int8 blocks through ``yst::int8_conv2d``) and with ``--cpu``: the
+    same blocks, each SQNR within ``SQNR_CARD_CPU_DB``, the mean difference
+    within 0.1 dB. Beside it, the spread of the CPU's SQNR when the weights
+    move by 1e-6 of themselves: f32 rounding alone moves the statistic that
+    far in the attention blocks (one probe batch, the noise of every block
+    before carried through the softmax)."""
+    from yolo_scratch_tpu_torch import quant_sqnr
+    from yolo_scratch_tpu_torch.infer import load_deploy_model
+
+    flags = ["--imgsz", str(IMGSZ), "--batch", "4", "--calib-batches", "2", "--worst", "1000"]
+    t0 = time.perf_counter()
+    card = quant_sqnr.main(flags)
+    t_card = time.perf_counter() - t0
+    cpu = quant_sqnr.main(flags + ["--cpu"])
+    if card["device"]["platform"] != "gpu" or cpu["device"]["platform"] != "cpu":
+        raise AssertionError(f"quant_sqnr ran on {card['device']} and {cpu['device']}")
+    got = {r["block"]: r["sqnr_db"] for r in card["worst"]}
+    ref = {r["block"]: r["sqnr_db"] for r in cpu["worst"]}
+    if card["blocks"] != cpu["blocks"] or got.keys() != ref.keys() or len(got) != card["blocks"]:
+        raise AssertionError(f"quant_sqnr: {card['blocks']} blocks on the card, {cpu['blocks']} "
+                             "on the CPU")
+    diff = {k: abs(got[k] - ref[k]) for k in ref}
+    worst, mean = max(diff, key=diff.get), float(np.mean(list(diff.values())))
+    if diff[worst] > SQNR_CARD_CPU_DB or mean > 0.1:
+        raise AssertionError(f"quant_sqnr {worst}: {got[worst]} dB on the card, {ref[worst]} on "
+                             f"the CPU (limit {SQNR_CARD_CPU_DB}); mean difference {mean:.3f} "
+                             "(limit 0.1)")
+    data = Loader(SyntheticDataset(n=64, img_size=IMGSZ), 4, prefetch=0)
+    it = iter(data)
+    calib, probe = [next(it)["img"] for _ in range(2)], next(it)["img"]
+    data.close()
+    torch.manual_seed(14)
+    model = load_deploy_model(device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 1e-6 * torch.randn_like(p))
+    jit = {r["block"]: r["sqnr_db"] for r in quant_sqnr.sqnr_rows(model, calib, probe)}
+    jit_diff = {k: abs(jit[k] - ref[k]) for k in ref}
+    jit_worst = max(jit_diff, key=jit_diff.get)
+    log(f"14(b) quant_sqnr on {ident}: {card['blocks']} blocks, min {card['sqnr_min_db']} dB, "
+        f"median {card['sqnr_median_db']} (CPU {cpu['sqnr_min_db']} / {cpu['sqnr_median_db']}); "
+        f"card vs CPU at most {diff[worst]:.1f} dB ({worst}; limit {SQNR_CARD_CPU_DB}), mean "
+        f"{mean:.3f}; the CPU with its weights jittered by 1e-6 moves at most "
+        f"{jit_diff[jit_worst]:.1f} dB ({jit_worst}), mean "
+        f"{float(np.mean(list(jit_diff.values()))):.3f}; {t_card:.1f} s on the card")
+
+
+def forward_profile_path(dev, ident: str, root) -> int:
+    """14(c): ``profile_forward`` at B=128, 640, plain and ``--full``;
+    ``parse_trace`` on each trace; one ``--full`` batch at conf 0 against the
+    plain sweep. Returns kernel #1's launches."""
+    from yolo_scratch_tpu_torch import parse_trace as PT
+    from yolo_scratch_tpu_torch import profile_forward as PF
+
+    launches = 0
+    for full in (False, True):
+        tag = "full" if full else "forward"
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = PF.main(["--top", "12"] + (["--full"] if full else []), out_dir=root / tag)
+        n = K.launches["nms_sweep_batched"]
+        launches += n
+        want = (2 + PROFILE_ITERS) if full else 0
+        if n != want or res["nms_launches"] != (PROFILE_ITERS if full else 0):
+            raise AssertionError(f"profile_forward {tag}: kernel #1 launched {n} times, "
+                                 f"{res['nms_launches']} in the trace; want {want}")
+        parsed = PT.main(["--dir", str(root / tag), "--top", "12"])
+        rel = abs(parsed["total_ms"] - res["total_ms"]) / res["total_ms"]
+        trace = PT.load(parsed["trace"])
+        sweeps = sum("nms_iou_mask_kernel" in e["name"] for e in PT.complete_events(trace, "kernel"))
+        if parsed["source"] != "device kernels" or rel > 0.01 or sweeps != res["nms_launches"]:
+            raise AssertionError(f"parse_trace {tag}: {parsed['source']}, total "
+                                 f"{parsed['total_ms']:.4f} ms against profile_forward's "
+                                 f"{res['total_ms']:.4f} ({rel:.2%}; limit 1%), {sweeps} sweeps")
+        log(f"14(c) profile_forward {tag} on {ident}: B={res['batch']}, {res['events']} kernel "
+            f"events, {res['ms_per_iter']:.3f} ms of kernels a call, top "
+            f"{res['top'][0][0][:60]} {res['top'][0][1]:.3f} ms; parse_trace "
+            f"{parsed['ms_per_iter']:.3f} ms ({rel:.3%} apart), copies "
+            f"{parsed['copy_ms_per_iter']:.3f} ms; kernel #1 launched {n} times "
+            f"({sweeps} in the trace); {time.perf_counter() - t0:.1f} s")
+    pred, x, fn = PF.build(HEADLINE_B, IMGSZ, True, dev, conf=0.0)
+    K.reset_launches()
+    with torch.inference_mode():
+        got = pack_detections(*fn())
+        torch.cuda.synchronize()
+        launches += K.launches["nms_sweep_batched"]
+        feats = [f.float() for f in pred.model(x.to(torch.bfloat16))]
+        ref = plain_packed(pred, feats)
+    check_packed(got, HEADLINE_B, 300)
+    kept = int(got[..., 6].sum())
+    if not torch.equal(got, ref) or kept == 0:
+        raise AssertionError(f"profile_forward --full at conf 0: detections differ from the "
+                             f"plain sweep ({kept} kept)")
+    log(f"14(c) profile_forward --full at conf 0, B={HEADLINE_B}: equal to the plain sweep "
+        f"({kept} kept of {HEADLINE_B} x 512 candidates)")
+    return launches
+
+
+def train_profile_path(ident: str, root) -> None:
+    """14(d): ``profile_train`` at its defaults (B=64, 640, bf16) with
+    ``--scan 5``, then ``train_roofline`` and ``parse_trace`` on its trace:
+    the stage shares sum to 100% within 0.1 and the whole-step span is
+    positive."""
+    from yolo_scratch_tpu_torch import parse_trace as PT
+    from yolo_scratch_tpu_torch import profile_train as PTR
+    from yolo_scratch_tpu_torch import train_roofline as TR
+
+    t0 = time.perf_counter()
+    res = PTR.main(["--scan", "5"], out_dir=root / "train")
+    t_run = time.perf_counter() - t0
+    roof = TR.main(["--dir", str(root / "train")])
+    parsed = PT.main(["--dir", str(root / "train"), "--top", "10"])
+    share = sum(roof["shares_pct"].values())
+    if not np.isfinite(res["loss"]) or abs(share - 100.0) > 0.1 or roof["step_ms_per_iter"] <= 0 \
+            or roof["source"] != "device kernels":
+        raise AssertionError(f"profile_train / train_roofline: loss {res['loss']}, shares sum "
+                             f"{share:.3f}%, step {roof['step_ms_per_iter']} ms, "
+                             f"{roof['source']}")
+    log(f"14(d) profile_train on {ident}: B=64, 640, bf16: first loss {res['loss']:.4f}, "
+        f"{res['step_ms']:.1f} ms a step ({res['imgs_per_sec']:.1f} img/s), back to back x5 "
+        f"{res['scan_step_ms']:.1f} ms ({res['scan_imgs_per_sec']:.1f} img/s), {t_run:.1f} s; "
+        f"train_roofline: whole step {roof['step_ms_per_iter']:.2f} ms on the card, stages "
+        + ", ".join(f"{k} {v:.2f} ms ({roof['shares_pct'][k]:.1f}%)"
+                    for k, v in roof["stages_ms_per_iter"].items())
+        + f" (sum {share:.2f}%); parse_trace: {parsed['ms_per_iter']:.2f} ms of kernels a step "
+        f"in {parsed['events'] // PROFILE_ITERS} kernels")
+
+
+def slice_j_phase(dev, ident: str) -> dict:
+    """14: the JAX repo's last tools on the card. Returns kernel #1's
+    launches over the phase's runs."""
+    from yolo_scratch_tpu_torch import ab_report
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        root = Path(tmp)
+        runs, launches = generator_path(root)
+        sqnr_path(ident)
+        launches += forward_profile_path(dev, ident, root)
+        train_profile_path(ident, root)
+        summary = ab_report.main(["--a", runs[0], "--b", runs[1], "--every", "1",
+                                  "--out", str(root / "AB_RECIPE.json")])
+        if json.loads((root / "AB_RECIPE.json").read_text()) != summary or \
+                summary["baseline"]["epochs"] != 2:
+            raise AssertionError(f"ab_report: {summary}")
+        log(f"14(e) ab_report on the two COCO runs: delta best mAP50 "
+            f"{summary['delta_best_mAP50']}")
+    log(f"slice J phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def across_cards(dev, ident: str) -> int:
     """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
     card a rank, (d) over every card, and the GPU test of a kernel launched
@@ -2882,6 +3113,7 @@ def main() -> int:
     sg = slice_g_phase(dev, ident)
     sh = slice_h_phase(dev, ident)
     si = slice_i_phase(dev, ident)
+    sj = slice_j_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
     # validation paths of both families, on phase 9's int8 Predictor,
@@ -2889,12 +3121,13 @@ def main() -> int:
     # (every rank's, summed) and shard_over replicas, and on phase 11's
     # checkpoint deploy (infer, export, serve) and blocked top-k paths, and on
     # phase 12's trainer, val, overfit and eval_quant runs, and on phase 13's
-    # benches; #2 on the B=1 postprocess of both families
+    # benches, and on phase 14's trainer runs and profile_forward --full; #2
+    # on the B=1 postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
                                       + ye["launches"] + yt["launches"] + dp["launches"]
                                       + mg["launches"] + sg["launches"] + sh["launches"]
-                                      + si["launches"]),
+                                      + si["launches"] + sj["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

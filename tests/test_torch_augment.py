@@ -31,6 +31,15 @@ from yolo_scratch_tpu_torch.data import augment as TA
 B, S, G = 4, 32, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_batch(seed=0, C=3):
     """Random colour images and boxes; image 3 has no GT, the others 1..G."""
     rng = np.random.RandomState(seed)

@@ -26,6 +26,15 @@ from yolo_scratch_tpu_torch.losses import crater_aux as T
 from yolo_scratch_tpu_torch.losses import legacy_loss as TL
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _check(jfn, tfn, args, argnums, kwargs=None, what=""):
     """Value and gradients w.r.t. ``args[i]`` for i in ``argnums``."""
     kwargs = kwargs or {}

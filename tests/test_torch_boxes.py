@@ -23,6 +23,15 @@ from yolo_scratch_tpu_torch.ops import anchors as tanchors
 from yolo_scratch_tpu_torch.ops import boxes as tboxes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _xyxy(rng, n):
     c = rng.uniform(0, 100, (n, 2))
     wh = rng.uniform(0.5, 40, (n, 2))

@@ -37,6 +37,15 @@ from yolo_scratch_tpu_torch.ops.conv_kernels import (
 from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, B, H, W, C, Ch, dtype):
     """``test_pallas_conv._case``'s inputs as JAX arrays, and the same values
     as torch tensors (weights in x's type, biases f32)."""

@@ -10,6 +10,7 @@ from argparse import Namespace
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_coco_dataset import coco_root  # noqa: F401 (fixture)
 from tests.test_crater_dataset import crater_root  # noqa: F401 (fixture)
@@ -22,6 +23,15 @@ from yolo_scratch_tpu_torch.data.coco import CocoDataset
 from yolo_scratch_tpu_torch.data.crater import CraterDataset
 from yolo_scratch_tpu_torch.data.loader import Loader
 from yolo_scratch_tpu_torch.train import cli as tcli
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_samples_equal(got_ds, ref_ds):
@@ -83,3 +93,33 @@ def test_make_datasets_and_batches_equal_jax(crater_root, coco_root, kind):  # n
 def test_make_datasets_without_annotations_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="no COCO annotations"):
         tcli.make_datasets(Namespace(data=str(tmp_path), dataset="auto", imgsz=64))
+
+
+@pytest.mark.parametrize("n,B,shuffle", [(6, 4, True), (10, 8, False), (6, 16, False),
+                                         (3, 16, True)])
+def test_loader_pads_a_short_split_by_cycling(n, B, shuffle):
+    """The final short batch is wrap-padded with the epoch's first indices,
+    flagged invalid. Where the padding is no longer than the split, the
+    batches equal the JAX loader's; where it is (a 6-image val split at
+    B=16, as 32 images and ``--val-split 0.2`` give), the port cycles
+    through the split again and the JAX loader raises a ``ValueError``."""
+    from yolo_scratch_tpu.data.synthetic import SyntheticDataset as JSynthetic
+    from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
+
+    idx = np.arange(n)
+    got = list(Loader(SyntheticDataset(n=n, img_size=32), B, shuffle=shuffle, indices=idx,
+                      prefetch=0))
+    order, _ = Loader(SyntheticDataset(n=n, img_size=32), B, shuffle=shuffle,
+                      indices=idx)._epoch_indices()
+    assert len(got) == -(-n // B)
+    assert sum(int(b["sample_valid"].sum()) for b in got) == n
+    np.testing.assert_array_equal(order[n:], np.resize(order[:n], len(order) - n))
+    ref_loader = JLoader(JSynthetic(n=n, img_size=32), B, shuffle=shuffle, indices=idx,
+                         prefetch=0)
+    if (-n) % B > n:
+        with pytest.raises(ValueError):
+            list(ref_loader)
+        return
+    for g, r in zip(got, ref_loader, strict=True):
+        for k in r:
+            np.testing.assert_array_equal(g[k], r[k], err_msg=k)

@@ -30,6 +30,15 @@ NC, REG, IMG, STRIDES = 5, 16, 128, (8.0, 16.0, 32.0)
 JAX_IMPL = {"kernel": "pallas", "pairwise": "xla"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_feats(seed, B=2, dtype="float32", tie_levels=0):
     """Raw NHWC Detect maps at IMG px. ``tie_levels`` > 0 draws the class
     logits from that many integer values, so max-logits tie massively."""

@@ -32,6 +32,15 @@ IMG = 64
 CPU = ["--device", "cpu", "--imgsz", str(IMG), "--batch", "2", "--conf", "0.0"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """A one-epoch ``train.cli`` run with EMA, its ``last`` checkpoint's raw

@@ -26,6 +26,15 @@ from yolo_scratch_tpu_torch.ops.dga_nms import dga_nms_device, pairwise_dga
 from yolo_scratch_tpu_torch.utils.metrics import cda_nms
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dups(seed, n=20):
     rng = np.random.RandomState(seed)
     c = rng.rand(n, 2).astype(np.float32) * 0.8 + 0.1

@@ -53,6 +53,15 @@ from yolo_scratch_tpu_torch.utils import metrics as tmet
 NC, REG, STRIDES = 5, 16, (8.0, 16.0, 32.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 

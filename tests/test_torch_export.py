@@ -33,6 +33,15 @@ REPO = Path(__file__).resolve().parent.parent
 IMGSZ = 96
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     return _seeded_model()

@@ -32,6 +32,9 @@ card.
   every epoch through kernel #1.
 * Slice I: the headline bench's program at B=128 (kernel #1's largest
   batch on a shipped path) equals the plain sweep at conf 0, exactly.
+* Slice J: ``profile_forward --full`` launches kernel #1 once per call,
+  profiled or not, and its output at conf 0 equals the same maps through
+  the plain sweep, exactly.
 
 Every test here needs a CUDA GPU (a CUDA kernel has no CPU mode) and skips
 without one. This file imports no JAX, so it also runs on a machine
@@ -632,5 +635,27 @@ def test_headline_program_at_b128_sweeps_kernel_1_as_plain(cuda, ch, nc):
     with torch.inference_mode():
         feats = pred.forward_feats(xs[0])
         got = pred.postprocess_feats(feats)
+        assert torch.equal(got, plain_packed(pred, feats))
+    assert int(got[..., 6].sum(1).min()) > 0
+
+
+def test_profile_forward_full_sweeps_kernel_1_once_a_call(cuda, tmp_path):
+    """Slice J: ``profile_forward --full`` at B=4, 640, conf 0: two warm-up
+    calls and three profiled ones launch kernel #1 five times, three of
+    them in the trace; one call's detections equal the same maps through
+    the plain sweep, exactly, with detections kept."""
+    from chip_smoke import plain_packed
+    from yolo_scratch_tpu_torch import profile_forward as PF
+    from yolo_scratch_tpu_torch.infer import pack_detections
+
+    before = K.launches["nms_sweep_batched"]
+    res = PF.main(["--batch", "4", "--full", "--iters", "3", "--top", "5"], conf=0.0,
+                  out_dir=tmp_path)
+    assert K.launches["nms_sweep_batched"] == before + 5 and res["nms_launches"] == 3
+    assert res["events"] > 0 and res["total_ms"] > 0 and res["device"]["platform"] == "gpu"
+    pred, x, fn = PF.build(4, 640, True, cuda, conf=0.0)
+    with torch.inference_mode():
+        got = pack_detections(*fn())
+        feats = [f.float() for f in pred.model(x.to(torch.bfloat16))]
         assert torch.equal(got, plain_packed(pred, feats))
     assert int(got[..., 6].sum(1).min()) > 0

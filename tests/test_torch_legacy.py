@@ -23,6 +23,15 @@ from yolo_scratch_tpu_torch.utils.model_info import count_params
 from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_stats(variables, seed):
     """The init tree with random BN statistics (flax inits them to 0/1)."""
     rng = np.random.RandomState(seed)

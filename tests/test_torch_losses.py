@@ -38,6 +38,15 @@ IMG, STRIDES, NC, REG, G = 64, (8.0, 16.0, 32.0), 5, 16, 8
 SHAPES = [(int(IMG // s), int(IMG // s), s) for s in STRIDES]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 

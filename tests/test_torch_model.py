@@ -32,6 +32,15 @@ YAML = {n: REPO / f"yolo_scratch_tpu/configs/{n}.yaml" for n in ("yolo11_crater"
 IMGSZ = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def perturbed_variables(variables, seed=0):
     """JAX init leaves BN at identity; randomise every BN leaf (and jitter
     the rest) so a wrong BN or weight mapping cannot hide."""

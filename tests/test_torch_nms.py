@@ -19,6 +19,15 @@ from yolo_scratch_tpu_torch.ops import nms as tnms
 from yolo_scratch_tpu_torch.ops import nms_kernels as tk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _boxes(rng, shape, spread=64.0, size=25.0, min_size=3.0):
     c = rng.rand(*shape, 2).astype(np.float32) * spread
     wh = rng.rand(*shape, 2).astype(np.float32) * size + min_size

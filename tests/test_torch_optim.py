@@ -42,6 +42,15 @@ SHAPES = {"conv": (8, 4, 3, 3), "bn_w": (8,), "bn_b": (8,), "head": (5, 8, 1, 1)
 LONG = {"conv": (512, 512, 3, 3), "bn_w": (512,), "head": (5, 512, 1, 1)}  # YOLOX-s's conv
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("lr,epochs,spe", [(1e-3, 10, 5), (1e-3, 150, 4), (1e-2, 300, 7)])
 def test_schedule_equals_jax_bit_for_bit(lr, epochs, spe):
     steps = np.arange(epochs * spe + 3)

@@ -75,6 +75,15 @@ TOL64 = 1e-9
 F64_CASES = {"plain": {}, "grad_accum": {"grad_accum": 2}, "augment": {"augment": True}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(family: str, B: int, shuffle: bool = False) -> dict:
     ds = SyntheticDataset(n=8, img_size=64, channels=CH[family], num_classes=5)
     return next(iter(Loader(ds, B, max_gt=8, shuffle=shuffle, prefetch=0)))

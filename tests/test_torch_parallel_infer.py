@@ -35,6 +35,15 @@ B = 8
 CPU2 = Mesh((torch.device("cpu"),) * 2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _yolo11():
     tm = _seeded_model()
     params, stats = convert_reference_state_dict(tm.state_dict())

@@ -39,6 +39,15 @@ CLI_FLAGS = ["--device", "cpu", "--data", "synthetic", "--scale", "n", "--imgsz"
              "--batch", "4", "--workers", "0", "--val-conf", "0.01"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _metrics(history):
     """A fit's history without its timings."""
     return [{k: {m: v for m, v in h[k].items() if m not in ("imgs_per_sec", "epoch_time_s")}

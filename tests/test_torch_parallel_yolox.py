@@ -13,6 +13,7 @@ the port's f32 lies 1e-5 from it.
 """
 
 import pytest
+import torch
 
 from tests import torch_parallel_ranks as R
 from tests.test_torch_parallel import (
@@ -22,6 +23,15 @@ from tests.test_torch_parallel import (
     local_scenarios,
     spawn_runs,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -71,6 +71,15 @@ CONV_CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
 def test_int8_conv2d_exact_against_xla_and_plain(case):
     _, c1, c2, k, s, p, d, g, H, B = case

@@ -30,6 +30,15 @@ from yolo_scratch_tpu_torch.serve import BatchingServer, ServerClosed, make_http
 IMG = 96
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _png_bytes(rng, w=100, h=80):
     from PIL import Image
 

@@ -33,6 +33,15 @@ from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled, nms
 # ---------------------------------------------------------------- blocked top-k
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scores(seed, B, A, dtype, crowd):
     """(B, A) scores with a -inf share (the conf gate); ``crowd`` puts the
     ``crowd`` highest scores of image 0 into one 128-lane block."""

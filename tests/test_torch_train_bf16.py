@@ -22,6 +22,7 @@ the EMA and the BN statistics stay f32 and finite.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -32,6 +33,15 @@ from tests.test_torch_train_step import _port_state, _sd, one_torch_thread  # no
 from yolo_scratch_tpu.train.steps import build_train_step_custom as jax_step
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.train.steps import build_train_step_custom, v8_loss_adapter
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def bf16_step_dtypes(tm, ts, batch):

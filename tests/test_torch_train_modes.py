@@ -52,6 +52,15 @@ from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.train.steps import build_train_step_custom, v8_loss_adapter
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jm = jax_build(JAX_CFG, ch=1, nc=5, scale="n")

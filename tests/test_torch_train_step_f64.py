@@ -75,6 +75,15 @@ from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
 TOL64 = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f64(tree):
     return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), jax.device_get(tree))
 

@@ -39,6 +39,15 @@ from yolo_scratch_tpu_torch.utils.weights import merge_pretrained
 CFG = CONFIGS / "yolo11_crater.json"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model(nc=5, seed=0):
     return build_yolo11(CFG, ch=1, nc=nc, scale="n", seed=seed)
 

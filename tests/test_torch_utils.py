@@ -27,6 +27,15 @@ from yolo_scratch_tpu_torch.utils.profiling import annotate, time_fn, trace
 JAX_CFG = str(CONFIGS.parent.parent / "yolo_scratch_tpu/configs/yolo11_crater.yaml")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("family,ratio", [("yolo11n", 1.1762), ("yolox-nano", 1.1685)])
 def test_model_info_matches_jax(family, ratio):
     if family == "yolo11n":

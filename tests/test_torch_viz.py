@@ -7,6 +7,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from yolo_scratch_tpu.utils import viz as jviz
@@ -18,6 +19,15 @@ from yolo_scratch_tpu_torch.utils.viz import (
     load_class_names,
     save_annotated,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_class_colors_distinct_and_deterministic():

@@ -44,6 +44,15 @@ IMGSZ, NC = 64, 5
 STRIDES = (8.0, 16.0, 32.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _images(seed, ch, B=2):
     return np.random.RandomState(seed).rand(B, IMGSZ, IMGSZ, ch).astype(np.float32)
 

@@ -49,6 +49,15 @@ G_TOL = 5e-3
 AUX = ("cls_loss", "iou_loss", "l1_loss", "num_fg", "obj_loss")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _loaders(n=8, val=True, shuffle=True):
     ds = SyntheticDataset(n=n, img_size=64, channels=3, num_classes=5)
     train = Loader(ds, batch_size=4, max_gt=8, shuffle=shuffle, prefetch=0)

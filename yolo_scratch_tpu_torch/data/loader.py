@@ -169,7 +169,10 @@ class Loader:
 
     def _epoch_indices(self) -> "tuple[np.ndarray, np.ndarray]":
         """Epoch index order plus a per-position validity flag (False on the
-        wrap-padding duplicates of the final short batch)."""
+        wrap-padding duplicates of the final short batch). The padding cycles
+        through the order, so a split shorter than the padding (6 images at
+        B=16) still fills its batch; the JAX loader's ``idxs[:pad]`` (the
+        same indices wherever it works) raises there."""
         idxs = self.indices.copy()
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idxs)
@@ -178,7 +181,7 @@ class Loader:
         pad = (-n) % B
         valid = np.ones(n + pad, dtype=bool)
         if pad:
-            idxs = np.concatenate([idxs, idxs[:pad]])
+            idxs = np.concatenate([idxs, np.resize(idxs, pad)])
             valid[n:] = False
         return idxs, valid
 

@@ -6,13 +6,19 @@ TensorBoard's profiler format (``*.pt.trace.json``, also readable by
 Perfetto); ``annotate(name)`` marks a sub-region
 (``torch.profiler.record_function``); ``time_fn`` gives the wall time of a
 call after warm-up, synchronised: CUDA events where the output lies on a
-card, ``time.perf_counter`` on the CPU.
+card, ``time.perf_counter`` on the CPU. ``trace_dir`` and ``export_trace`` are the
+profilers' (``profile_forward``, ``profile_train``): a Chrome trace with
+what it ran and where, which ``parse_trace`` and ``train_roofline`` read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import tempfile
 import time
+from pathlib import Path
 from typing import Any, Callable, Tuple
 
 import torch
@@ -29,6 +35,28 @@ def trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+def trace_dir(name: str) -> Path:
+    """The profilers' default trace directory, ``name`` under the temporary
+    directory (``/tmp/yst_trace`` and ``/tmp/yst_trace_train``, as the JAX
+    scripts write, where ``TMPDIR`` is unset)."""
+    return Path(tempfile.gettempdir()) / name
+
+
+def export_trace(prof, out_dir: str | os.PathLike, tag: str, **metadata) -> Path:
+    """Write ``prof``'s Chrome trace as ``out_dir/<tag>_<time>.pt.trace.json``
+    with each ``metadata`` item as a top-level JSON key (the device block,
+    the run's shapes). Call it inside the ``profile`` block: the profiler
+    takes metadata only while it is open; the file is written as it closes."""
+    for key, value in metadata.items():
+        prof.add_metadata_json(key, json.dumps(value))
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S") + f"-{time.time_ns() % 10**9:09d}"
+    path = out / f"{tag}_{stamp}.pt.trace.json"
+    prof.on_trace_ready = lambda p: p.export_chrome_trace(str(path))
+    return path
 
 
 def annotate(name: str):
