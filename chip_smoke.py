@@ -33,8 +33,10 @@ Phases (any failure raises and exits non-zero):
    (bf16) or 1e-5 (f32), atol the same times min(1, max|plain|), everywhere
    and on the border rows and columns, and the check must reject both zeros
    and x itself (a skipped branch). Then times: the
-   kernel, the folded module on cuDNN (the library yardstick) and the plain
-   version at each shape, beside the bound;
+   kernel (profiler and CUDA events), the folded module on cuDNN (the
+   library yardstick, f32 without TF32) and the plain version at each shape,
+   beside the bound (f32: 3xTF32's, and the CUDA cores' beside it); the f32
+   rows go into kernel #3's entry of the kernels line under ``f32``;
 6. eval: the crater YOLO11n (seeded init, random BN statistics, zeroed
    class-bias priors, as ``tests/test_torch_infer.py`` builds it) in f32
    with TF32 off, through the eval step at 640, B=32, where kernel #1 sweeps
@@ -294,7 +296,8 @@ KERNELS = {
         replaces="yolo_scratch_tpu/ops/pallas_conv.py:81",
         symbol="fused_bottleneck_kernel", plain=CK.bottleneck_plain),
 }
-# kernel #3's row in the table: the probe's 80x80x128 bf16 shape at B=32
+# kernel #3's row in the table: the probe's 80x80x128 bf16 shape at B=32,
+# with the f32 kernel's rows (3xTF32) under its "f32" key
 BNECK_ROW = "p3_s_128"
 BNECK_F32 = [("f32_p3_128", 80, 128, 128), ("f32_p5_512", 20, 512, 512)]
 ROWS = [("crater", "yolo11_crater.json", 1, 5), ("coco", "yolo11_coco.json", 3, 80)]
@@ -568,16 +571,23 @@ def bottleneck_phase(dev, ident: str) -> dict:
                                  f"{rel:.3g} of max|ref|")
 
     # times, after the counts were read
-    row = None
+    row, f32_rows = None, []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for case in cases + f32_cases:
         t = P.time_case(case)
-        log(f"bottleneck {case.name} B={BATCH} {case.got.dtype}: kernel {t['ms']:.4f} ms, "
+        core = (f", CUDA cores' bound {t['cuda_core_bound_ms']:.4f} ms"
+                if "cuda_core_bound_ms" in t else "")
+        log(f"bottleneck {case.name} B={BATCH} {case.got.dtype}: kernel {t['ms']:.4f} ms "
+            f"({t['event_ms']:.4f} ms by CUDA events, a call with its weight prep), "
             f"cuDNN folded module {t['library_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), {t['share']:.3f} of bound, "
-            f"on {ident}")
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}{core}), {t['share']:.3f} of "
+            f"bound, on {ident}")
         if case.name == BNECK_ROW:
-            row = dict(max_abs_err=case.err, **{k: t[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            row = dict(max_abs_err=case.err, **{k: t[k] for k in keys})
+        if case.got.dtype == torch.float32:
+            f32_rows.append(dict(shape=case.name, max_abs_err=case.err,
+                                 **{k: t[k] for k in keys + ("event_ms", "cuda_core_bound_ms")}))
+    row["f32"] = f32_rows  # the f32 kernel (3xTF32) beside the bf16 row
     shapes = {}
     for case, _ in contract:
         shapes.setdefault(case.name, case)

@@ -32,6 +32,8 @@ from yolo_scratch_tpu_torch.nn.modules import Bottleneck
 from yolo_scratch_tpu_torch.ops.conv_kernels import (
     bottleneck_plain,
     fused_bottleneck,
+    tf32_split,
+    weights_core_matrices,
     weights_ohwi,
 )
 from yolo_scratch_tpu_torch.utils.weights import state_dict_from_jax
@@ -111,6 +113,98 @@ def test_weights_ohwi_taps_match_plain(C, Ch):
     h = F.silu(_conv_taps(x, w1o) + b1)
     y = x + F.silu(_conv_taps(h, w2o) + b2)
     torch.testing.assert_close(y, bottleneck_plain(x, w1, b1, w2, b2), rtol=1e-5, atol=1e-5)
+
+
+def _tf32_ref(w):
+    """tf32(w) in float64, independent of the bit operations: |w| to the
+    nearest multiple of tf32's spacing at w (2^(e - 11) for w = m 2^e, m in
+    [0.5, 1); 2^-136 below f32's smallest normal), ties away from zero."""
+    w = w.astype(np.float64)
+    _, e = np.frexp(w)
+    grid = np.exp2(np.maximum(e - 11, -136).astype(np.float64))
+    return np.sign(w) * np.floor(np.abs(w) / grid + 0.5) * grid
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """hi = tf32(w) and lo = tf32(w - hi) have their 13 low mantissa bits
+    zero, round to nearest with ties away from zero (as ``cvt.rna``), and hi
+    + lo is w within 2^-22 |w| (within half tf32's subnormal spacing, 2^-137,
+    below f32's normals); zeros, negatives and subnormals included."""
+    bits = np.array([0x3F801000, 0xBF801000, 0x3F800FFF, 0x3F803000,  # ties (+, -), below, odd tie
+                     0x00001000, 0x80003000, 0x00000FFF, 0x00003456,  # subnormals
+                     0x00000000, 0x80000000, 0x00800000, 0x7F7FEFFF],  # +-0, min normal, near max
+                    np.uint32).view(np.float32)
+    rng = np.random.RandomState(5)
+    w = np.concatenate([bits, (rng.randn(4096) * np.exp2(rng.randint(-60, 60, 4096)))
+                        .astype(np.float32)])
+    hi, lo = tf32_split(torch.from_numpy(w))
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    np.testing.assert_array_equal(hi.numpy().astype(np.float64), _tf32_ref(w))
+    np.testing.assert_array_equal(lo.numpy().astype(np.float64),
+                                  _tf32_ref((w.astype(np.float64) - hi.numpy()).astype(np.float32)))
+    assert hi[0] == np.float32(1 + 2.0 ** -10) and hi[1] == -hi[0]  # ties away from zero
+    assert hi[2] == 1.0 and hi[4].view(torch.int32) == 0x2000 and hi[6] == 0
+    assert torch.equal(hi[8:10].view(torch.int32), torch.tensor([0, -2 ** 31], dtype=torch.int32))
+    err = np.abs(w.astype(np.float64) - hi.numpy() - lo.numpy())
+    assert np.all(err <= np.maximum(2.0 ** -22 * np.abs(w.astype(np.float64)), 2.0 ** -137))
+    with pytest.raises(TypeError):
+        tf32_split(torch.from_numpy(w).double())
+
+
+def _conv_tf32(a, w_ohwi, terms=("lo_hi", "hi_lo", "hi_hi")):
+    """:func:`_conv_taps` with each product as the f32 kernel takes it: a and
+    w split into tf32 hi + lo, and per tap the products ``terms`` of
+    a_lo w_hi, a_hi w_lo, a_hi w_hi, summed in f32 (a product of two tf32
+    values is exact in f32)."""
+    (ah, al), (wh, wl) = tf32_split(a), tf32_split(w_ohwi)
+    parts = {"lo_hi": (al, wh), "hi_lo": (ah, wl), "hi_hi": (ah, wh)}
+    return sum(_conv_taps(*parts[k]) for k in terms)
+
+
+def _bottleneck_tf32(x, w1, b1, w2, b2, terms=("lo_hi", "hi_lo", "hi_hi")):
+    h = F.silu(_conv_tf32(x, weights_ohwi(w1), terms) + b1)
+    return x + F.silu(_conv_tf32(h, weights_ohwi(w2), terms) + b2)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 8, 24, 64, 64),
+                                   (2, 12, 12, 128, 64), (1, 6, 7, 512, 512)])
+def test_3xtf32_emulation_matches_plain_and_xla(shape):
+    """The f32 kernel's arithmetic, emulated on the CPU (three tf32 products
+    a tap, the correction terms first), within the f32 tolerance (rtol =
+    atol = 1e-5) of ``bottleneck_plain`` and of JAX's ``bottleneck_xla``, at
+    the JAX test's shapes and at C = 512: the error budget of 3xTF32 holds
+    before any card runs it."""
+    jx, tx = _case(0, *shape, jnp.float32)
+    got = _np(_bottleneck_tf32(*tx))
+    np.testing.assert_allclose(got, _np(bottleneck_plain(*tx)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(bottleneck_xla(*jx)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("terms", [("hi_hi",), ("hi_lo", "hi_hi"), ("lo_hi", "hi_hi")],
+                         ids=["one_pass", "no_a_lo", "no_w_lo"])
+def test_tf32_without_both_corrections_misses_the_tolerance(terms):
+    """One TF32 pass, or 3xTF32 with either correction term dropped, is
+    off by ~1e-4 at C = 512: the f32 tolerance (1e-5) catches a kernel that
+    skips part of the split."""
+    _, tx = _case(0, 1, 6, 7, 512, 512, jnp.float32)
+    err = (_bottleneck_tf32(*tx, terms=terms) - bottleneck_plain(*tx)).abs().max()
+    assert float(err) > 5e-5
+
+
+def test_weights_core_matrices_layout():
+    """OHWI value (n, k') of column n's 9K run lands at [n // 8, k' // 4,
+    n % 8, k' % 4]: wgmma's core matrices (8 columns x 4 values) in order,
+    so 8 columns' run of K' is one contiguous block."""
+    N, K = 24, 16
+    wo = weights_ohwi(torch.randn(3, 3, K, N))
+    cm = weights_core_matrices(wo)
+    assert tuple(cm.shape) == (N // 8, 9 * K // 4, 8, 4) and cm.is_contiguous()
+    flat = wo.reshape(N, 9 * K)
+    assert torch.equal(cm.permute(0, 2, 1, 3).reshape(N, 9 * K), flat)
+    assert cm[2, 35, 7, 3] == flat[23, 143] and cm[1, 4, 1, 2] == flat[9, 18]
+    # columns 8-15, K' 16-31 (a 16 K' stage): 4 core matrices, one 512-byte run
+    assert torch.equal(cm[1, 4:8].reshape(4, 8, 4), flat[8:16, 16:32].reshape(8, 4, 4).transpose(0, 1))
 
 
 def _perturbed(variables, seed=0):
@@ -207,6 +301,18 @@ def test_probe_yardstick_and_bound():
     assert by == "bytes"
     assert ms == pytest.approx((2 * 32 * 160 * 160 * 16 * 2 + 2 * 9 * 16 * 16 * 2 + 4 * 32)
                                / 3.35e12 * 1e3)
+
+
+def test_probe_f32_bound_takes_the_3xtf32_route():
+    """The f32 kernel's bound is its route's: three TF32 products an f32 one
+    over 495 TFLOP/s, 0.732 ms at B=32 on both probe rows (80^2 x 128, 20^2 x
+    512: the same operations); the CUDA cores' 1.803 ms is logged beside it."""
+    flops = 2 * 32 * 80 * 80 * 9 * 2 * 128 * 128
+    for H, C in ((80, 128), (20, 512)):
+        ms, by = probe.bound_ms(32, H, H, C, C, torch.float32)
+        assert by == "operations" and ms == pytest.approx(3 * flops / 495e12 * 1e3)
+        assert ms == pytest.approx(0.7321, abs=1e-4)
+        assert probe.cuda_core_bound_ms(32, H, H, C, C) == pytest.approx(1.8030, abs=1e-4)
 
 
 def test_probe_check_holds_small_maps():

@@ -6,8 +6,9 @@ card.
   kernel's words equal ``nms_iou_mask_plain``'s bit for bit.
 * Fused bottleneck (kernel #3): bf16 at rtol = atol = 0.05, the border rows
   and columns also on their own (h is rounded to bf16 once; a sum in another
-  order can round it to the neighbouring value). f32 at rtol = atol = 1e-5,
-  the JAX tests' tolerance, at every C up to 512. The folded module: f32 at 2e-4 (TF32 off), bf16 within
+  order can round it to the neighbouring value). f32 (3xTF32 on the tensor
+  cores) at rtol = atol = 1e-5, the JAX tests' tolerance, at every C up to
+  512, and at its tiles' edges. The folded module: f32 at 2e-4 (TF32 off), bf16 within
   0.03 of max|ref| (cuDNN rounds the conv output to bf16 before its bias and
   SiLU; the kernel does not).
 * The YOLOX Predictor (kernel #1 at B > 1, #2 at B = 1): its detections
@@ -52,6 +53,7 @@ from yolo_scratch_tpu_torch.nn.modules import Bottleneck
 from yolo_scratch_tpu_torch.ops import conv_kernels as CK
 from yolo_scratch_tpu_torch.ops import nms_kernels as K
 from yolo_scratch_tpu_torch.probe_fused_bottleneck import tolerance
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms
 
 pytestmark = pytest.mark.gpu
 
@@ -202,6 +204,38 @@ def test_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, Ch):
         torch.testing.assert_close(got[ends].float(), ref[ends].float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,H,W,C,Ch", [
+    # conv1's M ((TH+2)(TW+2) = 91 on the 5 x 11 tile the plan takes here)
+    # not a multiple of 64, on ragged last tiles
+    (32, 19, 21, 128, 128),
+    # Ch != C: conv1 and conv2 take their columns in different numbers of
+    # 2*NB passes
+    (32, 11, 13, 128, 64), (32, 9, 10, 64, 256),
+    # C = 512: the probe's 3 x 4 tile, the largest that fits (ragged rows),
+    # and 1 x 1 tiles at B = 1
+    (32, 20, 20, 512, 512), (1, 7, 10, 512, 512),
+    # 16 K' stages (S = 2) at NB = 8: 32 divides neither width
+    (8, 9, 9, 48, 144)])
+def test_bottleneck_f32_kernel_tile_edges(cuda, B, H, W, C, Ch):
+    """The f32 kernel (3xTF32) at its design's edges, at the f32 tolerance
+    (rtol = atol = 1e-5), everywhere and on the border rows and columns."""
+    inputs = _bneck_inputs(B * W + Ch, B, H, W, C, Ch, torch.float32, cuda)
+    got = CK.fused_bottleneck(*inputs)
+    torch.cuda.synchronize()
+    ref = CK.bottleneck_plain(*inputs)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for ends in ((slice(None), [0, -1]), (slice(None), slice(None), [0, -1])):
+        torch.testing.assert_close(got[ends], ref[ends], rtol=1e-5, atol=1e-5)
+
+
+def test_bottleneck_f32_call_launches_the_3xtf32_kernel(cuda):
+    """An f32 call launches the tensor-core kernel by name, once a call."""
+    inputs = _bneck_inputs(3, 2, 16, 16, 128, 128, torch.float32, cuda)
+    ms, split = call_ms(lambda: CK.fused_bottleneck(*inputs), ("fused_bottleneck_kernel_3xtf32",),
+                        reps=10)
+    assert ms > 0 and list(split) == ["fused_bottleneck_kernel_3xtf32"]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_bottleneck_kernel_matches_folded_module(cuda, dtype):
     torch.manual_seed(0)
@@ -234,8 +268,9 @@ def test_bottleneck_wrapper_rejects_bad_input(cuda):
         CK._launch(x.transpose(1, 2), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="multiples of 16"):
         CK._launch(*_bneck_inputs(0, 1, 8, 8, 24, 24, torch.bfloat16, cuda))
-    with pytest.raises(ValueError, match="shared memory"):  # a 5x5 x tile is 410 KB
-        CK._launch(*_bneck_inputs(0, 1, 4, 4, 8192, 16, torch.bfloat16, cuda))
+    for dtype in (torch.bfloat16, torch.float32):  # a 5x5 x tile is 410 KB (bf16)
+        with pytest.raises(ValueError, match="shared memory"):
+            CK._launch(*_bneck_inputs(0, 1, 4, 4, 8192, 16, dtype, cuda))
     with pytest.raises(ValueError):
         CK._launch(x, w1, b1.cpu(), w2, b2)
 

@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel yolo_scratch_tpu/ops/pallas_conv.py::
 // _bneck_kernel (pallas_call at :122, entry fused_bottleneck). Bound in
 // Python by yolo_scratch_tpu_torch/ops/conv_kernels.py, which also holds the
-// plain PyTorch version (bottleneck_plain) and the weight reorder
-// (weights_ohwi) the bf16 path reads.
+// plain PyTorch version (bottleneck_plain), the weight reorder both paths
+// read (weights_ohwi) and the f32 path's tf32 split of it (tf32_split).
 //
 // What it computes (x NHWC, both convs 3x3 SAME stride 1, BN folded into the
 // f32 biases, every sum in f32):
@@ -56,11 +56,67 @@
 // the ldmatrix traffic. Not done: TMA, warp specialisation, persistent
 // blocks, clusters sharing a weight stage.
 //
-// f32 path (fused_bottleneck_kernel_f32): FFMA on CUDA cores (never TF32),
-// one thread per 4 rows x 1 column. Both tiles are kept with one row pitch
-// P = TW + 4, so pixel (r, c) of a tile is row r*P + c and tap (dy, dx) is
-// the same matrix shifted by dy*P + dx rows; the rows whose column lies past
-// the tile are computed and thrown away. Weights are read as HWIO from L2.
+// f32 path (fused_bottleneck_kernel_3xtf32<NB, S>): the same TPU kernel in
+// f32, as the JAX package's tests run it, held to rtol = atol = 1e-5. The
+// bf16 path's structure on wgmma's TF32 products, made f32-accurate by error
+// compensation (3xTF32). Its operations bound it at three TF32 products
+// each, 3 * 2*9*C*Ch per pixel and conv over 495 TFLOP/s (0.732 ms at B=32
+// on 80^2 x 128 and on 20^2 x 512; FFMA on the CUDA cores would be bound at
+// 1.803 ms by 67 TFLOP/s). Against what held the FFMA kernel it replaces to
+// 3% of that bound (CUDA cores only, a loop bound by scalar loads with no
+// weight reuse, pitch rows, nothing asynchronous):
+//   1. 3xTF32. A value v splits into hi = tf32(v) and lo = tf32(v - hi),
+//      both rounded to nearest with ties away (cvt.rna.tf32.f32; the
+//      wrapper splits the weights alike with integer bit operations). Per
+//      k8 step the block issues wgmma m64nNk8 tf32 three times into one
+//      accumulator, small terms first: a_lo*b_hi, a_hi*b_lo, a_hi*b_hi.
+//      Error budget: |v - hi - lo| <= 2^-22 |v|; the dropped a_lo*b_lo is
+//      <= 2^-22 |ab|; a product of two tf32 values is exact in the tensor
+//      core. So each product is within ~2^-21 of f32's, and a conv's sum
+//      within ~1e-6 at these scales. One TF32 pass (2^-11 a product), or
+//      either correction term dropped (2^-12), is off by ~1e-4: ten times
+//      the tolerance, which the f32 tests therefore guard.
+//   2. Sums promoted each stage. The tensor cores' f32 accumulation does
+//      not round to nearest: with one accumulator over a whole conv the
+//      kernel read 1.0e-4 from the plain version at C = 512 and 2.6e-5 at C
+//      = 128 on an H100. So each stage's first wgmma starts from zero
+//      (scale-d = 0), and after the stage's wait its sums are added into
+//      running f32 sums in registers: at most 3 * S wgmmas accumulate in
+//      the tensor cores.
+//   3. Weights (B): the wrapper reorders each to OHWI, then into wgmma's
+//      K-major no-swizzle core matrices (8 columns x 4 values, 128 bytes)
+//      in order (tf32 is K-major on both sides), and splits it into tf32 hi
+//      and lo. Stages of S k8 steps (16 or 32 K') x 2*NB columns of both
+//      pass through the bf16 path's three-deep cp.async ring; each 8
+//      columns' slice of a stage is one contiguous run in device memory and
+//      in the buffer (with the bf16 path's OHWI rows, 64-byte pieces 9K * 4
+//      bytes apart, 20^2 x 512 took 27.2 ms against 16.8). Both warpgroups
+//      take the same 64-row blocks, each NB of the stage's columns, so a
+//      tile of one block of rows (C = 512) keeps both busy.
+//   4. Activations (A) from registers: both tiles pixel-major f32, each
+//      pixel's row padded by 16 bytes, conv1's M (TH+2)(TW+2) and conv2's
+//      TH*TW each padded only to 64, each lane's ldmatrix.x4 address its own
+//      pixel's neighbour for the tap. ldmatrix's b16 pairs are tf32's
+//      m64nNk8 A fragment; two cvt.rna a value split it in registers. A
+//      stage lies within one tap (8 * S divides K), so its tap offset is
+//      computed per stage, with no table.
+//   5. Epilogues from the running sums, with the exact SiLU (silu_fast is
+//      2.5e-4 |v| off, 25x the tolerance): conv1 writes f32 h, 0 outside
+//      the image; conv2 adds the residual from the f32 x tile.
+//   6. Tile, NB and S per call, within one block's shared memory, by a cycle
+//      model fitted to this kernel's times. At C = 128 an 8 x 10 tile with
+//      NB = 64, S = 2 (x 88.7 KB, h 63.4 KB, ring 48 KB): 1.6 computed rows
+//      an output a conv. At C = 512 a 3 x 4 tile (x 115.6 KB, h 61.9 KB):
+//      5.3 rows an output, the limit of one block's shared memory.
+// What bounds it now, on an H100: the weight stream from L2. Every block
+// reads both weights' hi and lo, four times the bf16 path's bytes, once a
+// conv, for the few outputs its shared memory holds (6.0 GB a call at 80^2
+// x 128, 42 GB at 20^2 x 512, drawn at ~1.6 and ~2.5 TB/s). Tried and
+// measured: the split in integer operations (7% faster, but a NaN whose
+// payload carries into the sign bit becomes -0), a four-deep ring and
+// loading the next stage's fragments under the current stage's wgmmas (no
+// faster). Not done: h's channels split across a thread-block cluster, TMA
+// multicast of the weight stages, warp specialisation, persistent blocks.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -92,138 +148,6 @@ int device_attr(cudaDeviceAttr attr) {
       cudaDeviceGetAttribute(&value, attr, device) != cudaSuccess)
     return 0;
   return value;
-}
-
-// ------------------------------------------------------------------ f32 path
-
-constexpr int kThreads = 256;
-constexpr int kRowAlign = 16;                   // rows computed, in whole 16s
-constexpr int kRowsPerThread = 4;
-constexpr size_t kTwoBlocksSmem = 113 * 1024;   // two blocks per SM fit below this
-
-struct Plan {
-  int th, tw;   // output tile
-  int pitch;    // TW + 4: row pitch of the x and h tiles
-  int m1, m2;   // rows conv1 (h tile) and conv2 (y tile) compute
-  int xrows;    // x tile rows: the last row conv1 reads is m1 - 1 + 2*pitch + 2
-  int hrows;    // h tile rows, likewise for conv2
-  size_t smem;  // bytes of dynamic shared memory
-};
-
-Plan make_plan(int th, int tw, int c, int ch) {
-  Plan p;
-  p.th = th;
-  p.tw = tw;
-  p.pitch = tw + 4;
-  p.m1 = round_up((th + 2) * p.pitch, kRowAlign);
-  p.m2 = round_up(th * p.pitch, kRowAlign);
-  p.xrows = p.m1 + 2 * p.pitch + 2;
-  p.hrows = p.m1 > p.m2 + 2 * p.pitch + 2 ? p.m1 : p.m2 + 2 * p.pitch + 2;
-  p.smem = (static_cast<size_t>(p.xrows) * c + static_cast<size_t>(p.hrows) * ch) * sizeof(float);
-  return p;
-}
-
-// The tile with the fewest computed rows over the image (halo and pitch
-// rows included) among those whose shared memory lets two blocks share an
-// SM; failing that, among those that fit one block's limit.
-bool choose_plan(int h, int w, int c, int ch, size_t max_smem, Plan* out) {
-  const int tws[] = {28, 12, 4};
-  const int ths[] = {16, 8, 4, 2, 1};
-  const size_t limits[] = {kTwoBlocksSmem < max_smem ? kTwoBlocksSmem : max_smem, max_smem};
-  for (size_t limit : limits) {
-    bool found = false;
-    long best = 0;
-    for (int tw : tws) {
-      for (int th : ths) {
-        const Plan p = make_plan(th, tw, c, ch);
-        if (p.smem > limit) continue;
-        const long work = static_cast<long>(cdiv(h, th)) * cdiv(w, tw) * (p.m1 + p.m2);
-        if (!found || work < best) {
-          *out = p;
-          best = work;
-          found = true;
-        }
-      }
-    }
-    if (found) return true;
-  }
-  return false;
-}
-
-// out[m][n] = sum over taps t = 3*dy + dx and k < k_in of
-//   in[(m + dy*pitch + dx) * k_in + k] * w[(t * k_in + k) * n_out + n]
-// for m < rows, handed to epi(m, n, sum). Each thread sums kRowsPerThread
-// rows of one column; a warp's threads take neighbouring columns, so weight
-// loads coalesce and tile loads broadcast.
-template <typename Epi>
-__device__ void conv_cuda_cores(const float* in, const float* __restrict__ w, int rows, int k_in,
-                                int n_out, int pitch, Epi epi) {
-  const int items = rows / kRowsPerThread * n_out;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int n = item % n_out;
-    const int m0 = item / n_out * kRowsPerThread;
-    float acc[kRowsPerThread] = {};
-    for (int t = 0; t < 9; ++t) {
-      const float* a = in + (m0 + (t / 3) * pitch + t % 3) * k_in;
-      const float* wt = w + static_cast<size_t>(t) * k_in * n_out + n;
-      for (int k = 0; k < k_in; ++k) {
-        const float wv = wt[static_cast<size_t>(k) * n_out];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[i * k_in + k], wv, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) epi(m0 + i, n, acc[i]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    fused_bottleneck_kernel_f32(const float* __restrict__ x, const float* __restrict__ w1,
-                                const float* __restrict__ b1, const float* __restrict__ w2,
-                                const float* __restrict__ b2, float* __restrict__ y, int H, int W,
-                                int C, int Ch, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  float* hs = xs + static_cast<size_t>(p.xrows) * C;
-  const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
-
-  // x tile: row r is image pixel (y0 - 2 + r / P, x0 - 2 + r % P); zero
-  // outside the image and past the tile's TH + 4 rows. 16-byte copies.
-  const int vec = C * static_cast<int>(sizeof(float)) / 16;
-  for (int i = threadIdx.x; i < p.xrows * vec; i += blockDim.x) {
-    const int r = i / vec, v = i % vec;
-    const int ty = r / p.pitch, iy = y0 - 2 + ty, ix = x0 - 2 + r % p.pitch;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (ty < p.th + 4 && iy >= 0 && iy < H && ix >= 0 && ix < W)
-      val = reinterpret_cast<const int4*>(x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C)[v];
-    reinterpret_cast<int4*>(xs + r * C)[v] = val;
-  }
-  // h rows past what conv1 writes feed only discarded outputs; keep them 0
-  for (int i = p.m1 * Ch + threadIdx.x; i < p.hrows * Ch; i += blockDim.x) hs[i] = 0.0f;
-  __syncthreads();
-
-  // conv1 -> h. Row m is image pixel (y0 - 1 + m / P, x0 - 1 + m % P); an h
-  // position outside the image (or past the tile) is conv2's zero pad.
-  auto h_out = [&](int m, int n, float acc) {
-    const int hy = m / p.pitch, hx = m % p.pitch;
-    const int iy = y0 - 1 + hy, ix = x0 - 1 + hx;
-    const bool inside = hy < p.th + 2 && hx < p.tw + 2 && iy >= 0 && iy < H && ix >= 0 && ix < W;
-    hs[m * Ch + n] = inside ? silu(acc + b1[n]) : 0.0f;
-  };
-  // conv2 -> y. Row m is image pixel (y0 + m / P, x0 + m % P); its residual
-  // is x tile row m + 2*P + 2.
-  auto y_out = [&](int m, int n, float acc) {
-    const int oy = m / p.pitch, ox = m % p.pitch;
-    const int iy = y0 + oy, ix = x0 + ox;
-    if (oy < p.th && ox < p.tw && iy < H && ix < W) {
-      const float res = xs[(m + 2 * p.pitch + 2) * C + n];
-      y[((static_cast<size_t>(b) * H + iy) * W + ix) * C + n] = res + silu(acc + b2[n]);
-    }
-  };
-
-  conv_cuda_cores(xs, w1, p.m1, C, Ch, p.pitch, h_out);
-  __syncthreads();
-  conv_cuda_cores(hs, w2, p.m2, Ch, C, p.pitch, y_out);
 }
 
 // ----------------------------------------------------------------- bf16 path
@@ -699,6 +623,414 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ f32 path (3xTF32)
+
+constexpr int kF32Pad = 4;   // f32 values (16 bytes) after each tile pixel's row
+constexpr int kF32Mbw = 2;   // 64-row blocks a warpgroup holds: each takes nb / 2 registers a
+                             // thread for its stage sum, nb / 2 for its running sum and 8 a
+                             // k8 step for its A fragments (hi and lo)
+
+// the 3xTF32 split of an A value v: hi = tf32(v), lo = tf32(v - hi), each
+// rounded to 10 mantissa bits, to nearest with ties away from zero
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(v)));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(__uint_as_float(v) - __uint_as_float(hi)));
+}
+
+// d = (scale_d ? d : 0) + A (64 x 8, this thread's fragment in a) * B (8 x N,
+// descriptor): wgmma.mma_async m64nNk8, tf32 in, f32 sums, A from registers,
+// B K-major (tf32 takes no transpose)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The 3xTF32 wgmmas of one weight stage (S k8 steps) for a warpgroup's
+// first V 64-row blocks. Each lane's ldmatrix.x4 row is its pixel's
+// neighbour for the stage's tap (a_addr holds the tap's offset); its four
+// 32-bit values are the m64nNk8 tf32 A fragment, split in registers into hi
+// and lo. Every fragment and descriptor is ready before the fence; then per
+// k8 step and block a_lo*b_hi (from zero on the stage's first step),
+// a_hi*b_lo and a_hi*b_hi, and one commit. B's lo half lies lo_off bytes
+// after its hi half.
+template <int NB, int V, int S, int MBW>
+__device__ __forceinline__ void mma_stage_3xtf32(float (&acc)[MBW][NB / 2],
+                                                 const int (&row_off)[MBW], uint32_t a_addr,
+                                                 uint32_t b_addr, uint32_t lo_off) {
+  uint32_t hi[S][V][4], lo[S][V][4];
+  uint64_t desc[2 * S];  // B hi of each step, then B lo
+#pragma unroll
+  for (int step = 0; step < S; ++step) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr + step * 32 + row_off[i]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_tf32(a[r], hi[step][i][r], lo[step][i][r]);
+    }
+    desc[step] = b_desc(b_addr + step * 256, S * 256);
+    desc[S + step] = b_desc(b_addr + lo_off + step * 256, S * 256);
+  }
+  wgmma_fence(desc);
+#pragma unroll
+  for (int step = 0; step < S; ++step) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      wgmma_tf32<NB>(acc[i], lo[step][i], desc[step], step > 0);
+      wgmma_tf32<NB>(acc[i], hi[step][i], desc[S + step], 1);
+      wgmma_tf32<NB>(acc[i], hi[step][i], desc[step], 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// mma_stage_3xtf32 for the warpgroup's nvalid (1..V) blocks
+template <int NB, int V, int S, int MBW>
+__device__ __forceinline__ void mma_stage_3xtf32_n(int nvalid, float (&acc)[MBW][NB / 2],
+                                                   const int (&row_off)[MBW], uint32_t a_addr,
+                                                   uint32_t b_addr, uint32_t lo_off) {
+  if constexpr (V > 1) {
+    if (nvalid < V) {
+      mma_stage_3xtf32_n<NB, V - 1, S>(nvalid, acc, row_off, a_addr, b_addr, lo_off);
+      return;
+    }
+  }
+  mma_stage_3xtf32<NB, V, S>(acc, row_off, a_addr, b_addr, lo_off);
+}
+
+// One 3x3 conv of the block's tile in f32 on wgmma, 3xTF32: conv_wgmma's
+// implicit GEMM (the same pixel and tap maps; w, (N, 9, K) in core-matrix
+// order (N / 8, 9K / 4, 8, 4), split into w_hi and w_lo), with a stage of S k8 steps (S * 8 K', within one tap) for 2 * NB
+// columns. Both warpgroups take the same round of up to kF32Mbw 64-row
+// blocks, warpgroup wg the stage's columns [wg * NB, +NB). Each stage's
+// wgmmas sum from zero into acc; after their wait, acc is added to the
+// round's running sums (sum), whose epilogue is epi(m, n, v[n], v[n + 1]).
+//
+// Loop, as conv_wgmma's: for each stage, wait for it and pass the barrier,
+// start loading stage + 1 into the buffer of stage - 2 (cp.async), wait for
+// the previous stage's wgmmas and add their sums in, and issue this stage's.
+template <int NB, int S, typename Epi>
+__device__ __forceinline__ void conv_3xtf32(const float* tile, int ld, int in_w, int out_w, int M,
+                                            int K, int N, const float* __restrict__ w_hi,
+                                            const float* __restrict__ w_lo, float* stages,
+                                            int stage_bytes, Epi epi) {
+  static_assert(kRing == 3, "the loop loads one stage ahead into the buffer of stage - 2");
+  constexpr int kMbw = kF32Mbw;
+  constexpr int kCols = 2 * NB;   // columns of a stage
+  constexpr int kGroups = S * 2;  // 16-byte groups of a column in a stage's hi (or lo) half
+  constexpr int kStageK = S * 8;  // K' of a stage
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int kk = 9 * K;  // K' of one column
+  const int nstage = kk / kStageK;
+  const int mblocks = cdiv(M, 64);
+  const int nround = cdiv(mblocks, kMbw);
+  const int total = N / kCols * nround * nstage;
+  const int lo_off = stage_bytes / 2;
+  const uint32_t a_addr = smem_addr(tile) + (lane / 16) * 16, stage_addr = smem_addr(stages);
+  const uint32_t col_off = wg * (NB / 8) * kGroups * 128;  // this warpgroup's columns in a stage
+
+  // stage `loaded` (K' [ls * kStageK, +kStageK) of columns [lnp * kCols,
+  // +kCols)) into buffer loaded % kRing, hi then lo; core matrix (n / 8, g)
+  // at byte (n / 8 * kGroups + g) * 128 of its half. w is in core-matrix
+  // order, so each 8 columns' kGroups core matrices are one contiguous run,
+  // in w as in the buffer. One cp.async group per call; past the last stage
+  // an empty one.
+  int loaded = 0, ls = 0, lround = 0, lnp = 0;
+  auto load_next = [&]() {
+    if (loaded < total) {
+      const uint32_t dst = stage_addr + (loaded % kRing) * stage_bytes;
+      const size_t src = (static_cast<size_t>(lnp) * (kCols / 8) * (kk / 4) + ls * kGroups) * 32;
+      for (int i = tid; i < kCols * kGroups; i += kTcThreads) {
+        const int j = i / (kGroups * 8), q = i % (kGroups * 8);  // 8 columns j, 16 bytes q
+        const size_t o = src + static_cast<size_t>(j) * (kk / 4) * 32 + q * 4;
+        cp_async16(dst + i * 16, w_hi + o, 16);
+        cp_async16(dst + i * 16 + lo_off, w_lo + o, 16);
+      }
+      if (++ls == nstage) {
+        ls = 0;
+        if (++lround == nround) lround = 0, ++lnp;
+      }
+    }
+    cp_async_commit();
+    ++loaded;
+  };
+
+  float acc[kMbw][NB / 2], sum[kMbw][NB / 2];
+  int row_off[kMbw];  // byte offset in the tile of this lane's A row pixel, per block
+  int s = 0, round = 0, np = 0;    // the stage about to be issued
+  int nvalid = 0, mb0 = 0, n0 = 0;  // the round in the registers: blocks, first block, column
+
+  // the last issued stage's sums, once waited for, into the running sums
+  auto promote = [&]() {
+#pragma unroll
+    for (int i = 0; i < kMbw; ++i) {
+      fence_regs(acc[i]);
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) sum[i][j] += acc[i][j];
+    }
+  };
+  // accumulator layout: d[4j + 2h + e] is row 16 * warp + lane / 4 + 8h,
+  // column 8j + 2 * (lane % 4) + e of the 64 x NB block
+  auto epilogue = [&]() {
+#pragma unroll
+    for (int i = 0; i < kMbw; ++i) {
+      if (i >= nvalid) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mb0 + i) * 64 + warp * 16 + lane / 4 + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j)
+          epi(m, n0 + 8 * j + 2 * (lane % 4), sum[i][4 * j + 2 * h], sum[i][4 * j + 2 * h + 1]);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kMbw; ++i) {
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j) acc[i][j] = 0.0f;
+    fence_regs(acc[i]);
+  }
+  load_next();
+  for (int idx = 0; idx < total; ++idx) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage idx landed for all; all are done with stage idx - 2's buffer
+    load_next();      // stage idx + 1
+    wgmma_wait<0>();  // stage idx - 1's wgmmas: their registers are free
+    if (idx > 0) promote();
+    if (s == 0) {
+      if (idx > 0) epilogue();  // of the round that stage idx - 1 ended
+      mb0 = round * kMbw;
+      nvalid = min(kMbw, mblocks - mb0);
+      n0 = np * kCols + wg * NB;
+#pragma unroll
+      for (int i = 0; i < kMbw; ++i) {
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) sum[i][j] = 0.0f;
+        const int row = min((mb0 + i) * 64 + warp * 16 + lane % 16, M - 1);
+        row_off[i] = ((row / out_w) * in_w + row % out_w) * ld * 4;
+      }
+    }
+    // the stage's tap t and first input channel k
+    const int k0 = s * kStageK, t = k0 / K, k = k0 - t * K;
+    const uint32_t tap_off = (((t / 3) * in_w + t % 3) * ld + k) * 4;
+    mma_stage_3xtf32_n<NB, kMbw, S>(nvalid, acc, row_off, a_addr + tap_off,
+                                    stage_addr + (idx % kRing) * stage_bytes + col_off, lo_off);
+    if (++s == nstage) {
+      s = 0;
+      if (++round == nround) round = 0, ++np;
+    }
+  }
+  wgmma_wait<0>();
+  promote();
+  epilogue();  // of the last round
+}
+
+template <int NB, int S>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    fused_bottleneck_kernel_3xtf32(const float* __restrict__ x, const float* __restrict__ w1_hi,
+                                   const float* __restrict__ w1_lo, const float* __restrict__ b1,
+                                   const float* __restrict__ w2_hi,
+                                   const float* __restrict__ w2_lo, const float* __restrict__ b2,
+                                   float* __restrict__ y, int H, int W, int C, int Ch,
+                                   TilePlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* hs = reinterpret_cast<float*>(smem + p.h_off);
+  float* stages = reinterpret_cast<float*>(smem + p.w_off);
+  const int b = blockIdx.x, y0 = blockIdx.y * p.th, x0 = blockIdx.z * p.tw;
+
+  // x tile: pixel r is image pixel (y0 - 2 + r / xw, x0 - 2 + r % xw), zero
+  // outside the image. cp.async, committed with conv1's first weight stage.
+  const int vec = C / 4;
+  const uint32_t xs_addr = smem_addr(xs);
+  for (int i = threadIdx.x; i < (p.th + 4) * p.xw * vec; i += kTcThreads) {
+    const int r = i / vec, v = i % vec;
+    const int iy = y0 - 2 + r / p.xw, ix = x0 - 2 + r % p.xw;
+    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const float* src = inside ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + v * 4 : x;
+    cp_async16(xs_addr + (r * p.xld + v * 4) * 4, src, inside ? 16 : 0);
+  }
+
+  // conv1 -> h in f32. h pixel m is image pixel (y0 - 1 + m / hw, x0 - 1 +
+  // m % hw); one outside the image is conv2's zero pad.
+  auto h_out = [&](int m, int n, float v0, float v1) {
+    const int iy = y0 - 1 + m / p.hw, ix = x0 - 1 + m % p.hw;
+    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    *reinterpret_cast<float2*>(hs + m * p.hld + n) =
+        inside ? make_float2(silu(v0 + b1[n]), silu(v1 + b1[n + 1])) : make_float2(0.0f, 0.0f);
+  };
+  // conv2 -> y. y pixel m is image pixel (y0 + m / TW, x0 + m % TW); its
+  // residual is x tile pixel (m / TW + 2, m % TW + 2), added in f32.
+  auto y_out = [&](int m, int n, float v0, float v1) {
+    const int oy = m / p.tw, ox = m % p.tw, iy = y0 + oy, ix = x0 + ox;
+    if (iy < H && ix < W) {
+      const float2 res =
+          *reinterpret_cast<const float2*>(xs + ((oy + 2) * p.xw + ox + 2) * p.xld + n);
+      *reinterpret_cast<float2*>(y + ((static_cast<size_t>(b) * H + iy) * W + ix) * C + n) =
+          make_float2(res.x + silu(v0 + b2[n]), res.y + silu(v1 + b2[n + 1]));
+    }
+  };
+
+  conv_3xtf32<NB, S>(xs, p.xld, p.xw, p.hw, p.m1, C, Ch, w1_hi, w1_lo, stages, p.stage, h_out);
+  __syncthreads();  // h complete before conv2 reads it; conv1's stages free
+  conv_3xtf32<NB, S>(hs, p.hld, p.hw, p.tw, p.m2, Ch, C, w2_hi, w2_lo, stages, p.stage, y_out);
+}
+
+TilePlan make_tile_3xtf32(int th, int tw, int c, int ch, int nb, int s) {
+  TilePlan p;
+  p.th = th;
+  p.tw = tw;
+  p.xw = tw + 4;
+  p.hw = tw + 2;
+  p.m1 = (th + 2) * (tw + 2);
+  p.m2 = th * tw;
+  p.xld = c + kF32Pad;
+  p.hld = ch + kF32Pad;
+  p.stage = 2 * (s * 8) * (2 * nb) * 4;  // hi and lo, S * 8 K' x 2 * NB columns of f32
+  p.h_off = (th + 4) * p.xw * p.xld * 4;
+  p.w_off = round_up(p.h_off + p.m1 * p.hld * 4, 128);
+  p.t_off = p.w_off + kRing * p.stage;  // no table: the end of the ring
+  p.smem = static_cast<size_t>(p.t_off);
+  return p;
+}
+
+// Modelled cycles of one 3xTF32 conv of a block on its SM. Each stage of
+// each 2 * nb-column pass costs the larger of the tensor cores' time (an
+// m64nNk8 tf32 takes N / 2 cycles, three a k8 step, both warpgroups on the
+// round's blocks) and its bytes at the rate a block draws them from L2, then
+// the ldmatrix and split of its A fragments (they follow the previous
+// stage's wait) and a fixed overhead. Fitted to this kernel's times on an
+// H100 (the probe's shapes at B=32): ~10 bytes a cycle from L2 a block.
+constexpr double kF32StageCycles = 700, kF32SplitCycles = 128, kF32L2BytesPerCycle = 10;
+
+double conv_cycles_3xtf32(int m, int k, int n, int nb, int s) {
+  const int nstage = 9 * k / (8 * s), mblocks = cdiv(m, 64), passes = n / (2 * nb);
+  const double load = 128.0 * s * nb / kF32L2BytesPerCycle;
+  double cycles = 0;
+  for (int mb = 0; mb < mblocks; mb += kF32Mbw) {
+    const int v = mblocks - mb < kF32Mbw ? mblocks - mb : kF32Mbw;
+    const double mma = 3.0 * v * s * nb;
+    const double stage = (mma > load ? mma : load) + kF32SplitCycles * s * v + kF32StageCycles;
+    cycles += passes * nstage * stage + v * 64.0 * n * kEpilogueCycles;
+  }
+  return cycles;
+}
+
+struct F32Plan {
+  TilePlan tile;
+  int nb, s;  // columns a warpgroup takes, k8 steps a stage
+};
+
+// (nb, s) the f32 kernel is built for: nb columns a warpgroup, s k8 steps a
+// stage
+constexpr int kF32Configs[][2] = {{64, 2}, {32, 4}, {16, 4}, {8, 2}};
+
+// The plan with the fewest modelled cycles, as choose_tile: over (nb, s)
+// and tiles up to 32 x 32
+bool choose_plan_3xtf32(int batch, int h, int w, int c, int ch, F32Plan* out) {
+  const size_t max_smem = static_cast<size_t>(device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
+  const long sms = device_attr(cudaDevAttrMultiProcessorCount);
+  if (max_smem == 0 || sms == 0) return false;
+  bool found = false;
+  double best = 0;
+  for (const auto& cfg : kF32Configs) {
+    const int nb = cfg[0], s = cfg[1];
+    // 2 * nb columns a pass, and a stage's 8 * s K' within one tap
+    if (c % (2 * nb) || ch % (2 * nb) || c % (8 * s) || ch % (8 * s)) continue;
+    for (int th = 1; th <= (h < 32 ? h : 32); ++th) {
+      for (int tw = 1; tw <= (w < 32 ? w : 32); ++tw) {
+        const TilePlan p = make_tile_3xtf32(th, tw, c, ch, nb, s);
+        if (p.smem > max_smem) continue;
+        const long blocks = static_cast<long>(batch) * cdiv(h, th) * cdiv(w, tw);
+        const double cost =
+            static_cast<double>((blocks + sms - 1) / sms) *
+            (conv_cycles_3xtf32(p.m1, c, ch, nb, s) + conv_cycles_3xtf32(p.m2, ch, c, nb, s) +
+             (th + 4) * p.xw * c * 4.0 / kLoadBytesPerCycle);
+        if (!found || cost < best) {
+          *out = F32Plan{p, nb, s};
+          best = cost;
+          found = true;
+        }
+      }
+    }
+  }
+  return found;
+}
+
+template <int NB, int S>
+int launch_3xtf32(const F32Plan& p, const float* x, const float* w1_hi, const float* w1_lo,
+                  const float* b1, const float* w2_hi, const float* w2_lo, const float* b2,
+                  float* y, int batch, int h, int w, int c, int ch, cudaStream_t stream) {
+  auto kernel = fused_bottleneck_kernel_3xtf32<NB, S>;
+  if (p.tile.smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.tile.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(batch, cdiv(h, p.tile.th), cdiv(w, p.tile.tw));
+  kernel<<<grid, kTcThreads, p.tile.smem, stream>>>(x, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, y, h,
+                                                    w, c, ch, p.tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int batch, int h, int w, int c, int ch) {
   return batch <= 0 || h <= 0 || w <= 0 || c <= 0 || ch <= 0 || c % 16 || ch % 16;
 }
@@ -725,26 +1057,29 @@ int yst_fused_bottleneck_bf16(const void* x, const void* w1, const float* b1, co
   return launch_bf16<16>(x, w1, b1, w2, b2, y, batch, h, w, c, ch, s);
 }
 
-// The same in f32 with HWIO weights, w1 (3, 3, c, ch) and w2 (3, 3, ch, c).
-int yst_fused_bottleneck_f32(const void* x, const void* w1, const float* b1, const void* w2,
-                             const float* b2, void* y, int batch, int h, int w, int c, int ch,
-                             void* stream) {
+// The same in f32 on wgmma (3xTF32): x, y f32; w1_hi, w1_lo and w2_hi, w2_lo
+// f32 holding tf32 values: conv_kernels.tf32_split (hi + lo = the weight
+// within 2^-22 of it) of each weight in core-matrix order,
+// conv_kernels.weights_core_matrices(weights_ohwi(w)): (ch / 8, 9c / 4, 8, 4)
+// and (c / 8, 9ch / 4, 8, 4). All 16-byte aligned.
+int yst_fused_bottleneck_f32(const void* x, const void* w1_hi, const void* w1_lo, const float* b1,
+                             const void* w2_hi, const void* w2_lo, const float* b2, void* y,
+                             int batch, int h, int w, int c, int ch, void* stream) {
   if (bad_shape(batch, h, w, c, ch)) return static_cast<int>(cudaErrorInvalidValue);
-  Plan p;
-  if (!choose_plan(h, w, c, ch, static_cast<size_t>(
-                       device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin)), &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_bottleneck_kernel_f32;
-  if (p.smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  F32Plan p;
+  if (!choose_plan_3xtf32(batch, h, w, c, ch, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&launch_3xtf32<8, 2>) launch;
+  switch (p.nb * 10 + p.s) {  // the kF32Configs
+    case 642: launch = launch_3xtf32<64, 2>; break;
+    case 324: launch = launch_3xtf32<32, 4>; break;
+    case 164: launch = launch_3xtf32<16, 4>; break;
+    case 82: launch = launch_3xtf32<8, 2>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(batch, cdiv(h, p.th), cdiv(w, p.tw));
-  kernel<<<grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
-      static_cast<const float*>(w2), b2, static_cast<float*>(y), h, w, c, ch, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch(p, static_cast<const float*>(x), static_cast<const float*>(w1_hi),
+                static_cast<const float*>(w1_lo), b1, static_cast<const float*>(w2_hi),
+                static_cast<const float*>(w2_lo), b2, static_cast<float*>(y), batch, h, w, c, ch,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

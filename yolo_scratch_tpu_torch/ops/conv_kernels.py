@@ -9,8 +9,11 @@ version (port of ``ops/pallas_conv.py``).
 ==========================================  ====================================
 
 ``nn/fuse.py::bottleneck_weights`` reads a folded ``Bottleneck`` as this
-kernel's weights. The bf16 kernel reads them in the order
-:func:`weights_ohwi` gives, which the wrapper makes once per call.
+kernel's weights. The kernel reads them in the order :func:`weights_ohwi`
+gives, which the wrapper makes once per call; the f32 kernel (3xTF32 on
+the tensor cores) reads each reordered on into wgmma's core matrices
+(:func:`weights_core_matrices`) and split into two tf32 tensors,
+:func:`tf32_split`'s hi and lo.
 
 The kernel lives in ``csrc/fused_bottleneck.cu`` (built with nvcc for sm_90a
 at first use, loaded with ctypes). :func:`fused_bottleneck` runs the kernel
@@ -46,14 +49,15 @@ def reset_launches() -> None:
 def load_kernels() -> ctypes.CDLL:
     """Build ``csrc/fused_bottleneck.cu`` into ``build/libyst_conv.so`` at
     first use and load it. nvcc may contract multiply-adds here: the kernel
-    is held to a tolerance, and the sums are FMAs."""
+    is held to a tolerance, and its sums are the tensor cores'."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_cuda_library("yst_conv", [_SOURCE])))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for sym in _SYMBOL.values():
+        for dtype, sym in _SYMBOL.items():
             fn = getattr(lib, sym)
-            fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+            # x, w1 (hi, lo in f32), b1, w2 (hi, lo in f32), b2, y
+            fn.argtypes = [ptr] * (6 if dtype == torch.bfloat16 else 8) + [i32] * 5 + [ptr]
             fn.restype = i32
         _lib = lib
     return _lib
@@ -105,10 +109,37 @@ def bottleneck_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
 # -------------------------------------------------------------------- kernel
 
 def weights_ohwi(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, K, N) -> OHWI (N, 3, 3, K), contiguous: the layout the bf16
+    """HWIO (3, 3, K, N) -> OHWI (N, 3, 3, K), contiguous: the layout the
     kernel reads. Column n's nine taps of K inputs are then one contiguous
     run, which the kernel stages in shared memory K-major for wgmma."""
     return w.permute(3, 0, 1, 2).contiguous()
+
+
+def weights_core_matrices(w_ohwi: torch.Tensor) -> torch.Tensor:
+    """OHWI (N, 3, 3, K) -> (N / 8, 9K / 4, 8, 4), contiguous: wgmma's
+    K-major core matrices (8 columns x 4 values, 128 bytes of f32) in order,
+    the layout the f32 kernel reads. Any 8 columns' run of K' is then one
+    contiguous run, as the kernel stages it in shared memory."""
+    N = w_ohwi.shape[0]
+    return w_ohwi.reshape(N // 8, 8, -1, 4).permute(0, 2, 1, 3).contiguous()
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13
+    dropped bits' unit to the magnitude, then clear them."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``w`` as tf32 values hi + lo: hi = tf32(w), lo = tf32(w - hi),
+    each with its 13 low mantissa bits zero. hi + lo is w within 2^-22 |w|
+    (for normal w), the operands of the f32 kernel's 3xTF32 products."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes f32, got {w.dtype}")
+    hi = _tf32_rna(w)
+    return hi, _tf32_rna(w - hi)
 
 
 # cudaErrorInvalidValue: what the launch returns when no tile of these
@@ -136,13 +167,16 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    if x.dtype == torch.bfloat16:
-        w1, w2 = weights_ohwi(w1), weights_ohwi(w2)
+    w1, w2 = weights_ohwi(w1), weights_ohwi(w2)
+    if x.dtype == torch.float32:
+        (w1h, w1l), (w2h, w2l) = (tf32_split(weights_core_matrices(w)) for w in (w1, w2))
+        ptrs = (x, w1h, w1l, b1, w2h, w2l, b2, y)
+    else:
+        ptrs = (x, w1, b1, w2, b2, y)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         err = getattr(load_kernels(), _SYMBOL[x.dtype])(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), B, H, W, C, Ch, stream)
+            *(t.data_ptr() for t in ptrs), B, H, W, C, Ch, stream)
     if err == _NO_TILE:
         raise ValueError(f"C={C}, Ch={Ch} ({x.dtype}): no tile fits within one block's "
                          "shared memory")

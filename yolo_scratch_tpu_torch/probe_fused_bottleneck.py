@@ -9,12 +9,16 @@ makes the probe's seeded inputs, runs kernel #3
 (``ops/conv_kernels.fused_bottleneck``) once and holds it against its plain
 version, then reports:
 
-* the kernel's device ms (``torch.profiler``);
+* the kernel's device ms (``torch.profiler``), and the call's ms by CUDA
+  events over back-to-back calls (the wrapper's weight reorder and split
+  and its host time included);
 * the yardstick's device ms: the port's folded ``Bottleneck`` module in the
-  same type, ``channels_last``, on cuDNN, as the Predictor runs it;
-* the bound: the larger of the operations over the card's dense peak for
-  the type and the bytes (x in, y out, both weights, each once) over its
-  memory rate, and the kernel's share of it;
+  same type, ``channels_last``, on cuDNN (f32 without TF32), as the
+  Predictor runs it;
+* the bound: the larger of the operations over the card's dense peak on the
+  kernel's route and the bytes (x in, y out, both weights, each once) over
+  its memory rate, and the kernel's share of it; for f32 also the bound on
+  the CUDA cores (FFMA), which the route beats;
 * max|d| against the plain version.
 
 Needs a CUDA GPU (``--device cpu`` runs the check on the CPU, no times).
@@ -33,12 +37,16 @@ import torch
 from yolo_scratch_tpu_torch.nn.fuse import fuse_conv_bn
 from yolo_scratch_tpu_torch.nn.modules import Bottleneck
 from yolo_scratch_tpu_torch.ops import conv_kernels as CK
-from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms
+from yolo_scratch_tpu_torch.utils.cuda_timing import call_ms, device_ms, time_ms
 from yolo_scratch_tpu_torch.utils.device import resolve_device
 
-# H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W): bf16 tensor cores,
-# f32 on CUDA cores (the f32 path uses no TF32), HBM bytes/s.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data-sheet peaks (NVIDIA, dense, at 700 W) on each type's route:
+# bf16 tensor cores; TF32 tensor cores for f32, whose kernel takes three
+# TF32 products for each f32 one (3xTF32); f32 FFMA on the CUDA cores, the
+# f32 bound without tensor cores; HBM bytes/s.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+PRODUCTS = {torch.bfloat16: 1, torch.float32: 3}
+CUDA_CORE_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 # (name, H, C, Ch), W == H: the probe's shapes (scripts/probe_fused_bottleneck.py)
@@ -81,16 +89,27 @@ def folded_module(w1, b1, w2, b2) -> Bottleneck:
     return m.to(memory_format=torch.channels_last) if w1.is_cuda else m
 
 
+def flops(B: int, H: int, W: int, C: int, Ch: int) -> int:
+    """Both convs' multiply-adds x 2."""
+    return 2 * B * H * W * 9 * (C * Ch + Ch * C)
+
+
 def bound_ms(B: int, H: int, W: int, C: int, Ch: int, dtype: torch.dtype) -> Tuple[float, str]:
-    """Least time for one call on the card: operations (both convs' MACs x 2)
-    over the dense peak of ``dtype`` vs bytes (x read once, y written once,
-    both weights once; the biases are f32) over the HBM rate."""
+    """Least time for one call on the card on the kernel's route: operations
+    (:func:`flops`, times the tensor-core products each takes) over the
+    route's dense peak vs bytes (x read once, y written once, both weights
+    once; the biases are f32) over the HBM rate."""
     esize = torch.empty((), dtype=dtype).element_size()
-    flops = 2 * B * H * W * 9 * (C * Ch + Ch * C)
     nbytes = 2 * B * H * W * C * esize + 2 * 9 * C * Ch * esize + 4 * (C + Ch)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = PRODUCTS[dtype] * flops(B, H, W, C, Ch) / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cuda_core_bound_ms(B: int, H: int, W: int, C: int, Ch: int) -> float:
+    """The f32 operations' least time on the CUDA cores (FFMA, no tensor
+    cores), the bound of the f32 kernel this one replaced."""
+    return flops(B, H, W, C, Ch) / CUDA_CORE_F32_FLOPS * 1e3
 
 
 def tolerance(dtype: torch.dtype) -> float:
@@ -161,20 +180,28 @@ def run_cases(batch: int, dtype: torch.dtype, device, shapes=SHAPES, seed: int =
 
 
 def time_case(case: Case) -> dict:
-    """Kernel, yardstick and plain device ms, bound and share for one case."""
+    """Kernel (profiler and CUDA events), yardstick and plain device ms,
+    bound and share for one case; for f32 also the CUDA-core bound."""
     x, w1, b1, w2, b2 = case.inputs
     B, H, W, C = x.shape
+    Ch = w1.shape[-1]
     module = folded_module(w1, b1, w2, b2)
     xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor: channels_last
 
+    def call():
+        return CK.fused_bottleneck(*case.inputs)
+
     with torch.inference_mode(), CK.full_f32():  # an f32 yardstick without TF32
-        ms = call_ms(lambda: CK.fused_bottleneck(*case.inputs), ("fused_bottleneck_kernel",),
-                     REPS)[0]
+        ms = call_ms(call, ("fused_bottleneck_kernel",), REPS)[0]
+        event = time_ms(call, REPS)
         library = device_ms(lambda: module(xc), REPS)
         plain = device_ms(lambda: CK.bottleneck_plain(*case.inputs), REPS // 4)
-    bms, by = bound_ms(B, H, W, C, w1.shape[-1], x.dtype)
-    return dict(ms=ms, library_ms=library, plain_ms=plain, bound_ms=bms, bound_by=by,
-                share=bms / ms)
+    bms, by = bound_ms(B, H, W, C, Ch, x.dtype)
+    out = dict(ms=ms, event_ms=event, library_ms=library, plain_ms=plain, bound_ms=bms,
+               bound_by=by, share=bms / ms)
+    if x.dtype == torch.float32:
+        out["cuda_core_bound_ms"] = cuda_core_bound_ms(B, H, W, C, Ch)
+    return out
 
 
 def main(argv=None) -> int:
@@ -189,19 +216,21 @@ def main(argv=None) -> int:
         torch.backends.cudnn.benchmark = True  # the yardstick at cuDNN's fastest algorithm
         print(f"device: {torch.cuda.get_device_name(0)}  batch={args.batch}  dtype={args.dtype}",
               flush=True)
-    print(f"{'shape':10s} {'kernel ms':>10s} {'cuDNN ms':>9s} {'plain ms':>9s} {'bound ms':>9s} "
-          f"{'by':>10s} {'of bound':>8s} {'max|d|':>9s}", flush=True)
+    print(f"{'shape':10s} {'kernel ms':>10s} {'event ms':>9s} {'cuDNN ms':>9s} {'plain ms':>9s} "
+          f"{'bound ms':>9s} {'by':>10s} {'of bound':>8s} {'max|d|':>9s}", flush=True)
     rows = []
     for case in run_cases(args.batch, dtype, dev):
         row = dict(shape=case.name, max_abs_err=case.err)
         if dev.type == "cuda":
             row.update(time_case(case))
-            print(f"{case.name:10s} {row['ms']:10.4f} {row['library_ms']:9.4f} "
-                  f"{row['plain_ms']:9.3f} {row['bound_ms']:9.4f} {row['bound_by']:>10s} "
-                  f"{row['share']:8.3f} {case.err:9.4f}", flush=True)
+            core = (f"  (CUDA cores' bound {row['cuda_core_bound_ms']:.4f} ms)"
+                    if "cuda_core_bound_ms" in row else "")
+            print(f"{case.name:10s} {row['ms']:10.4f} {row['event_ms']:9.4f} "
+                  f"{row['library_ms']:9.4f} {row['plain_ms']:9.3f} {row['bound_ms']:9.4f} "
+                  f"{row['bound_by']:>10s} {row['share']:8.3f} {case.err:9.2e}{core}", flush=True)
         else:
-            print(f"{case.name:10s} {'-':>10s} {'-':>9s} {'-':>9s} {'-':>9s} {'-':>10s} "
-                  f"{'-':>8s} {case.err:9.4f}", flush=True)
+            print(f"{case.name:10s} {'-':>10s} {'-':>9s} {'-':>9s} {'-':>9s} {'-':>9s} "
+                  f"{'-':>10s} {'-':>8s} {case.err:9.2e}", flush=True)
         rows.append(row)
     print(json.dumps({"probe": rows, "batch": args.batch, "dtype": args.dtype}))
     return 0
