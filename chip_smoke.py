@@ -177,6 +177,23 @@ Phases (any failure raises and exits non-zero):
    ``train_roofline`` (device kernels, shares summing to 100% within 0.1,
    a positive whole-step span) and ``parse_trace`` on its trace; (e)
    ``ab_report`` on (a)'s two runs.
+15. slice K, a JAX run directory on the card: the committed fixture
+   ``tests/fixtures/jax_ckpt/`` (the JAX package's ``save_epoch`` of a
+   narrow crater YOLO11 after two train steps, EMA on: per-leaf orbax,
+   ``flat_opt`` orbax and the npz fallback; this machine has no JAX to
+   write one). (a) g++ builds the port's zstd decoder, which links no
+   libzstd; (b) every leaf of every form read by the port's own code
+   (OCDBT, zarr v2, zstd) equals its sha256, dtype and shape in
+   ``digests.json``; (c) ``load_deploy_model(ckpt=<fixture>)`` through
+   ``Predictor.predict_batch`` at 640, B=32, conf 0, kernel #1's counter
+   zeroed just before and read just after: the detections equal the same
+   feats through the plain sweep, and the card's f32 forward equals the
+   CPU's; (d) ``Trainer.fit(resume=True)`` on a copy of the per-leaf run
+   directory, one epoch at 640, B=16 on synthetic data: the resumed
+   weights, EMA, moments, count and step equal the port tree read in (b),
+   training starts at the fixture's epoch + 1, and kernel #1 launches in
+   its validation; (e) the reader's ms on each form and the decoder's MB/s
+   on this host (host code).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -187,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import statistics
@@ -3065,6 +3083,200 @@ def slice_j_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# slice K (phase 15): the JAX package's checkpoints, read by the port's own
+# code (OCDBT, zarr v2, zstd), deployed and resumed on the card. The card's
+# machine has no JAX to write one, so the fixture is committed.
+FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_ckpt"
+FIXTURE_CFG = FIXTURE / "yolo11_crater_tiny.yaml"  # JSON text; its one scale is "t"
+FIXTURE_FORMS = ("leaf", "flat", "npz")
+
+
+def leaf_sha256(tree, path=()) -> dict:
+    """{"a/b/c": {"dtype", "shape", "sha256"} | None | {}} of a nested dict,
+    as ``tests/fixtures/jax_ckpt/digests.json`` holds them."""
+    out = {}
+    if isinstance(tree, dict) and tree:
+        for k, v in tree.items():
+            out.update(leaf_sha256(v, path + (k,)))
+    elif tree is None or isinstance(tree, dict):
+        out["/".join(map(str, path))] = tree
+    else:
+        a = np.ascontiguousarray(tree)
+        out["/".join(map(str, path))] = {"dtype": a.dtype.str, "shape": list(a.shape),
+                                         "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return out
+
+
+def read_fixture(form: str) -> dict:
+    from yolo_scratch_tpu_torch.train.jax_checkpoints import read_jax_npz, read_orbax
+
+    d = FIXTURE / form
+    return read_jax_npz(d / "last.npz") if form == "npz" else read_orbax(d / "last")
+
+
+def decoder_build_path() -> None:
+    """15(a): the package's first load of the zstd decoder, which g++ builds
+    from its source here, linking nothing but the C++ runtime."""
+    from yolo_scratch_tpu_torch.utils import zstd
+
+    if zstd._lib is not None:
+        raise AssertionError("the zstd decoder was loaded before phase 15")
+    zstd.LIBRARY.unlink(missing_ok=True)  # a build left by an earlier run
+    t0 = time.perf_counter()
+    zstd.load()
+    build_s = time.perf_counter() - t0
+    needed = subprocess.run(["ldd", str(zstd.LIBRARY)], capture_output=True, text=True,
+                            check=True).stdout
+    if "zstd" in needed:
+        raise AssertionError(f"the zstd decoder links libzstd:\n{needed}")
+    log(f"15(a) zstd decoder: g++ built and loaded {zstd.SOURCE.name} in {build_s:.2f} s "
+        f"(needs {', '.join(sorted(n.split()[0] for n in needed.splitlines() if '=>' in n))})")
+
+
+def fixture_digest_path() -> None:
+    """15(b): every leaf of every fixture form, read on this host, against
+    the sha256, dtype and shape that orbax restored where it was written."""
+    want = json.loads((FIXTURE / "digests.json").read_text())
+    for form in FIXTURE_FORMS:
+        got = leaf_sha256(read_fixture(form))
+        if got != want[form]:
+            bad = sorted(k for k in want[form] if got.get(k) != want[form][k])
+            raise AssertionError(f"fixture {form}: {len(bad)} leaves differ from digests.json, "
+                                 f"e.g. {bad[:3]}; missing/extra {sorted(set(got) ^ set(want[form]))[:3]}")
+        arrays = sum(1 for v in got.values() if isinstance(v, dict) and v)
+        log(f"15(b) fixture {form}: all {arrays} arrays equal their digests")
+
+
+def fixture_serve_path(dev, ident: str) -> int:
+    """15(c): ``load_deploy_model(ckpt=<fixture>)`` served by
+    ``Predictor.predict_batch`` at 640, B=32, kernel #1's counter zeroed just
+    before and read just after; at conf 0 the detections equal the same feats
+    through the plain sweep; the card's f32 forward equals the CPU's.
+    Returns kernel #1's launches."""
+    model = load_deploy_model(FIXTURE_CFG, scale="t", ckpt=FIXTURE / "leaf", which="last",
+                              device=dev)
+    if (model.in_ch, model.nc) != (1, 5):
+        raise AssertionError(f"fixture model read as ch={model.in_ch}, nc={model.nc}")
+    pred = Predictor(model, PredictorConfig(img_size=IMGSZ, batch_size=BATCH,
+                                            conf_threshold=0.0), device=dev)
+    xs = [np.random.RandomState(150 + i).randint(0, 256, (BATCH, IMGSZ, IMGSZ, 1),
+                                                 dtype=np.uint8) for i in range(2)]
+    K.reset_launches()
+    for x in xs:
+        check_packed(pred.predict_batch(x), BATCH, 300)
+    torch.cuda.synchronize()
+    n = K.launches["nms_sweep_batched"]
+    if n != len(xs):
+        raise AssertionError(f"the fixture's Predictor launched kernel #1 {n} times for "
+                             f"{len(xs)} batches")
+    with torch.inference_mode():
+        feats = pred.forward_feats(xs[0])
+        got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+    kept = int(got[..., 6].sum())
+    if not torch.equal(got, ref) or kept == 0:
+        raise AssertionError(f"fixture: conf-0 detections differ from the plain sweep "
+                             f"({kept} kept)")
+    forward_check("15(c) fixture (JAX checkpoint)", model, xs[1][:2], dev)
+    log(f"15(c) fixture served at {IMGSZ}, B={BATCH}, conf 0 on {ident}: kernel #1 launched "
+        f"{n} times, detections equal the plain sweep's ({kept} kept)")
+    return n
+
+
+def fixture_resume_path(dev, tmp: Path) -> int:
+    """15(d): ``Trainer.fit(resume=True)`` on a copy of the fixture's
+    per-leaf run directory, one epoch at 640 on synthetic data: the state
+    right after the resume equals the port tree read from the fixture
+    (weights, EMA, moments, count, step) and training starts at the
+    fixture's epoch + 1. Returns kernel #1's launches (its validation)."""
+    import shutil
+
+    from yolo_scratch_tpu_torch.train.jax_checkpoints import port_tree_from_jax
+    from yolo_scratch_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    run = tmp / "resume"
+    shutil.copytree(FIXTURE / "leaf", run)
+    epoch = json.loads((run / "last.meta.json").read_text())["epoch"]
+    want = port_tree_from_jax(read_fixture("leaf"))
+    ds = SyntheticDataset(n=32, img_size=IMGSZ)
+    train = Loader(ds, 16, shuffle=True, prefetch=0)
+    val = Loader(ds, 16, prefetch=0, indices=list(range(16)))
+    model = build_yolo11(FIXTURE_CFG, ch=1, nc=5, scale="t").to(dev)
+    trainer = Trainer(model, train, val, TrainerConfig(epochs=epoch + 2, save_dir=str(run),
+                                                       use_ema=True, eval_with_ema=True))
+    if not trainer.resume() or trainer.start_epoch != epoch + 1:
+        raise AssertionError(f"resume of the fixture started at epoch {trainer.start_epoch}")
+    st = trainer.state
+    names = [n for n, _ in model.named_parameters()]
+    sd = model.state_dict()
+    checks = [torch.equal(sd[k].cpu(), v) for k, v in want["model"].items()]
+    for n, m, v in zip(names, st.per_param(st.opt_state.mu), st.per_param(st.opt_state.nu)):
+        checks += [torch.equal(m.cpu(), want["opt_state"]["mu"][n]),
+                   torch.equal(v.cpu(), want["opt_state"]["nu"][n]),
+                   torch.equal(st.ema[n].cpu(), want["ema"][n])]
+    if not all(checks) or (st.step, st.opt_state.count) != (want["step"],
+                                                             want["opt_state"]["count"]):
+        raise AssertionError(f"resumed fixture state differs: {checks.count(False)} tensors, "
+                             f"step {st.step} / {want['step']}")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.fit(resume=True)
+    torch.cuda.synchronize()
+    n = K.launches["nms_sweep_batched"]
+    hist = out["history"]
+    if [h["epoch"] for h in hist] != [epoch + 1] or n != len(val) or not all(
+            np.isfinite(h["train"]["loss"]) for h in hist):
+        raise AssertionError(f"fit(resume=True) on the fixture: {hist}, kernel #1 launched "
+                             f"{n} times for {len(val)} val batches")
+    train.close()
+    val.close()
+    log(f"15(d) fixture resumed at epoch {epoch + 1} (step {want['step']}, count "
+        f"{want['opt_state']['count']}: weights, EMA and moments equal the fixture's), one "
+        f"epoch at {IMGSZ}, B=16 in {time.perf_counter() - t0:.1f} s, loss "
+        f"{hist[0]['train']['loss']:.4f}, kernel #1 launched {n} times in its validation")
+    return n
+
+
+def reader_timing_path(ident: str) -> None:
+    """15(e): the reader's seconds on the fixture on this host (best of 5),
+    and the decoder's MB/s over the fixture's zstd chunks (decoded bytes
+    over decode seconds, best of 5). Host code: the card takes no part."""
+    from yolo_scratch_tpu_torch.utils import zstd
+    from yolo_scratch_tpu_torch.utils.ocdbt import OcdbtStore
+
+    def best(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    secs = {form: best(lambda f=form: read_fixture(f)) for form in FIXTURE_FORMS}
+    with OcdbtStore(FIXTURE / "leaf" / "last") as store:
+        frames = [v for v in (store.get(k) for k in store.list()) if v[:4] == b"\x28\xb5\x2f\xfd"]
+    out_bytes = sum(len(zstd.decompress(f)) for f in frames)
+    dec_s = best(lambda: [zstd.decompress(f) for f in frames])
+    log(f"15(e) reader on the fixture, this host ({ident} beside it; host code): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in secs.items())
+        + f"; zstd decoder {out_bytes / dec_s / 1e6:.1f} MB/s over the fixture's "
+        f"{len(frames)} frames ({out_bytes / 1e6:.2f} MB out, "
+        f"{sum(map(len, frames)) / 1e6:.2f} MB in)")
+
+
+def slice_k_phase(dev, ident: str) -> dict:
+    """15: a JAX run directory (the committed fixture) read, served and
+    resumed on the card. Returns kernel #1's launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        decoder_build_path()
+        fixture_digest_path()
+        launches = fixture_serve_path(dev, ident)
+        launches += fixture_resume_path(dev, Path(tmp))
+        reader_timing_path(ident)
+    log(f"slice K phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def across_cards(dev, ident: str) -> int:
     """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
     card a rank, (d) over every card, and the GPU test of a kernel launched
@@ -3124,6 +3336,7 @@ def main() -> int:
     sh = slice_h_phase(dev, ident)
     si = slice_i_phase(dev, ident)
     sj = slice_j_phase(dev, ident)
+    sk = slice_k_phase(dev, ident)
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
     # validation paths of both families, on phase 9's int8 Predictor,
@@ -3131,13 +3344,15 @@ def main() -> int:
     # (every rank's, summed) and shard_over replicas, and on phase 11's
     # checkpoint deploy (infer, export, serve) and blocked top-k paths, and on
     # phase 12's trainer, val, overfit and eval_quant runs, and on phase 13's
-    # benches, and on phase 14's trainer runs and profile_forward --full; #2
+    # benches, and on phase 14's trainer runs and profile_forward --full, and
+    # on phase 15's Predictor and resumed trainer over the JAX checkpoint; #2
     # on the B=1 postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
                                       + ye["launches"] + yt["launches"] + dp["launches"]
                                       + mg["launches"] + sg["launches"] + sh["launches"]
-                                      + si["launches"] + sj["launches"]),
+                                      + si["launches"] + sj["launches"]
+                                      + sk["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

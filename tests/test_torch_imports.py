@@ -2,7 +2,9 @@
 JAX package (whose ``__init__`` pulls in JAX), so they run on a machine
 that has only PyTorch; nor the JAX repo's root scripts (``bench.py``,
 ``__graft_entry__.py``) or ``scripts/``, which the port's benches and
-``entry.py`` replace."""
+``entry.py`` replace; nor orbax, tensorstore or ``zstandard``: the port
+reads the JAX package's checkpoints with its own code, and its zstd decoder
+links no libzstd."""
 
 import subprocess
 import sys
@@ -20,7 +22,8 @@ import chip_smoke
 assert callable(chip_smoke.main) and chip_smoke.KERNELS
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "yolo_scratch_tpu", "bench",
-                                    "__graft_entry__", "scripts"))
+                                    "__graft_entry__", "scripts", "orbax", "tensorstore",
+                                    "zstandard"))
 print(len(names), "modules;", "leaked:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -31,4 +34,17 @@ def test_port_and_chip_smoke_import_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 86, proc.stdout  # every module of the package was imported
+    assert n_modules >= 90, proc.stdout  # every module of the package was imported
+
+
+def test_zstd_decoder_links_no_libzstd():
+    """The decoder's shared library (``csrc/zstd_decode.cpp``, built with g++
+    at first use) needs no libzstd: none in its ``DT_NEEDED`` entries (what
+    ``ldd`` resolves) nor anywhere in the file."""
+    from yolo_scratch_tpu_torch.utils import zstd
+
+    zstd.load()
+    needed = subprocess.run(["ldd", str(zstd.LIBRARY)], capture_output=True, text=True,
+                            check=True).stdout
+    assert "zstd" not in needed and "libstdc++" in needed, needed
+    assert b"libzstd" not in zstd.LIBRARY.read_bytes()

@@ -55,6 +55,7 @@ from flax import linen as fnn
 
 from yolo_scratch_tpu.losses.v8_loss import DetectionLossConfig as JLossConfig
 from yolo_scratch_tpu.models.builder import build_yolo11 as jax_build
+from yolo_scratch_tpu.train.checkpoints import CheckpointManager as JaxCheckpointManager
 from yolo_scratch_tpu.train.optim import cosine_epoch_schedule as jax_schedule
 from yolo_scratch_tpu.train.optim import make_optimizer as jax_optimizer
 from yolo_scratch_tpu.train.state import create_train_state as jax_state
@@ -65,6 +66,7 @@ from yolo_scratch_tpu_torch.data.synthetic import SyntheticDataset
 from yolo_scratch_tpu_torch.losses.v8_loss import DetectionLossConfig
 from yolo_scratch_tpu_torch.models.builder import CONFIGS, build_yolo11
 from yolo_scratch_tpu_torch.nn.modules import BatchNorm2d
+from yolo_scratch_tpu_torch.train.checkpoints import CheckpointManager
 from yolo_scratch_tpu_torch.train.optim import cosine_epoch_schedule, make_optimizer
 from yolo_scratch_tpu_torch.train.state import create_train_state
 from yolo_scratch_tpu_torch.train.steps import build_train_step_custom, v8_loss_adapter
@@ -199,12 +201,14 @@ def _close_per_tensor(got, ref, tol, what):
     return worst
 
 
-def _check_step(jstate, setup):
+def _check_step(jstate, setup, port=None):
+    """One port step against one JAX step from ``jstate``; ``port``: the
+    port's (model, train state) holding ``jstate``, else built from it."""
     batch, _, _, jstep, jgrads = setup
     j_next, j_metrics = jstep(jstate, batch)
     g_ref = _params_sd(jgrads(jstate.params, jstate.batch_stats))
 
-    tm, ts = _port_state(jstate)
+    tm, ts = _port_state(jstate) if port is None else port
     step = _port_step(tm)
     lr = ts.tx.lr(ts.opt_state.count)
     assert lr == float(jax_schedule(**jax_schedule_args())(jnp.int32(ts.opt_state.count)))
@@ -253,6 +257,31 @@ def test_second_step_matches_jax(setup):
     batch, _, state, jstep, _ = setup
     s1, _ = jstep(state, batch)
     _check_step(s1, setup)
+
+
+def test_step_after_resume_from_jax_matches_jax(setup, tmp_path):
+    """The JAX state after one step, saved by the JAX package's
+    ``CheckpointManager.save_epoch`` (orbax) and resumed by the port's
+    ``try_resume``: weights, BN statistics, EMA, moments and counts equal
+    what ``_port_state`` carries across, exactly; then one step of each side
+    from it, at the tolerances above."""
+    batch, _, state, jstep, _ = setup
+    s1, _ = jstep(state, batch)
+    mgr = JaxCheckpointManager(str(tmp_path), async_save=False)
+    mgr.save_epoch(jax.device_get(s1), 0, {}, {"loss": 1.0}, float("inf"), 0.0)
+    mgr.wait()
+    tm = build_yolo11(CONFIGS / "yolo11_crater.json", ch=1, nc=5, scale="n", seed=3)
+    ts = create_train_state(tm, make_optimizer(cosine_epoch_schedule(**jax_schedule_args())),
+                            use_ema=True)
+    ts, start, _, _ = CheckpointManager(str(tmp_path)).try_resume(ts)
+    ref_tm, ref_ts = _port_state(s1)
+    assert start == 1 and ts.step == ref_ts.step and ts.opt_state.count == ref_ts.opt_state.count
+    ref = ref_tm.state_dict()
+    assert all(torch.equal(v, ref[k]) for k, v in tm.state_dict().items())
+    for a, b in zip(ts.opt_state.mu + ts.opt_state.nu, ref_ts.opt_state.mu + ref_ts.opt_state.nu):
+        assert torch.equal(a, b)
+    assert all(torch.equal(v, ref_ts.ema[k]) for k, v in ts.ema.items())
+    _check_step(s1, setup, port=(tm, ts))
 
 
 def test_remat_equals_plain_bn_updated_once(setup):

@@ -24,7 +24,9 @@ state_dict.pt | --ckpt <dir> [--which best|last] | --torch-ckpt ref.pt]
 DIR [--names FILE]] --out preds.json``. Runs on ``cuda`` unless ``--device
 cpu``.
 
-The JAX package's orbax checkpoints are not read: orbax imports JAX.
+A ``--ckpt`` directory may also be a run directory of the JAX package: its
+orbax (OCDBT, zarr v2, zstd) or npz checkpoints are read by the port's own
+code (``train/jax_checkpoints.py``), with nothing of JAX or orbax installed.
 """
 
 from __future__ import annotations
@@ -177,8 +179,8 @@ def load_deploy_model(
 
     * ``torch_ckpt``: a reference-layout ``.pt`` (``utils/weights.py``);
       always YOLO11, as the reference has no YOLOX;
-    * ``ckpt``: a checkpoint directory of the port's trainer
-      (``train/checkpoints.py``), its ``which`` ("best" or "last")
+    * ``ckpt``: a checkpoint directory of the port's trainer or of the JAX
+      package's (``train/checkpoints.py``), its ``which`` ("best" or "last")
       checkpoint. It serves the raw weights and BN buffers, not the EMA,
       as the JAX CLIs do, and a model that does not fit the checkpoint
       (a forced ``--nc``/``--ch``) raises a ``ValueError`` naming it;
@@ -242,7 +244,8 @@ def add_source_args(p) -> None:
     p.add_argument("--weights", type=str, default=None,
                    help="port state_dict (.pt); default: seeded init")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="checkpoint dir of the port's trainer (its raw weights, not the EMA)")
+                   help="checkpoint dir of the port's or the JAX package's trainer (its raw "
+                        "weights, not the EMA)")
     p.add_argument("--which", type=str, default="best", choices=["best", "last"])
     p.add_argument("--torch-ckpt", type=str, default=None, help="reference .pt checkpoint")
 

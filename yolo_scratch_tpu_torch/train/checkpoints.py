@@ -32,8 +32,13 @@ Under a mesh (``parallel/mesh.py``) rank 0 alone writes, as the JAX
 package's ``_is_writer``; every rank meets at a barrier once rank 0's write
 has landed (in ``wait``) and reads the same files on resume.
 
-The JAX package's orbax directories are not read here: orbax's format needs
-tensorstore (ROADMAP C5).
+Where ``<name>.pt`` is absent, the JAX package's checkpoint of that name is
+read instead (``train/jax_checkpoints.py``, in the port's own code): its
+orbax directory ``<name>/`` or its npz fallback, in the layout above, beside
+the ``<name>.meta.json`` the JAX package writes in the same form. So a JAX
+run directory resumes (weights, EMA, moments, count, step, epoch and bests,
+into a per-leaf or ``flat_opt`` state), deploys and evaluates wherever a
+directory of the port's is taken. The port writes only ``<name>.pt``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from yolo_scratch_tpu_torch.parallel.distributed import barrier
+from yolo_scratch_tpu_torch.train.jax_checkpoints import read_jax_checkpoint
 from yolo_scratch_tpu_torch.train.state import ema_as_tree
 
 def _meta_dumps(meta: Dict[str, Any]) -> str:
@@ -241,13 +247,13 @@ class CheckpointManager:
         return json.loads(path.read_text()) if path.exists() else None
 
     def load_raw(self, name: str = "best") -> Optional[Dict[str, Any]]:
-        """The saved tree (on the CPU), or None when there is no such
-        checkpoint."""
+        """The saved tree (on the CPU): ``<name>.pt``, else the JAX package's
+        checkpoint ``name`` in the same layout; None when there is neither."""
         self.wait()
         _join_writes(self._key)
         path = self.dir / f"{name}.pt"
         if not path.exists():
-            return None
+            return read_jax_checkpoint(self.dir, name)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def try_resume(self, state, name: str = "last"):
@@ -260,7 +266,8 @@ class CheckpointManager:
             return state, 0, float("inf"), 0.0
         tree = self.load_raw(name)
         if tree is None:
-            raise FileNotFoundError(f"{self.dir / name}.meta.json has no {name}.pt beside it")
+            raise FileNotFoundError(f"{self.dir / name}.meta.json has no {name}.pt, "
+                                    f"{name}/ (orbax) or {name}.npz beside it")
         model = state.model
         check_checkpoint(tree, model, name, ema=state.ema is not None)
         with torch.no_grad():

@@ -78,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val-split", type=float, default=0.2)
     p.add_argument("--save-dir", type=str, default="runs/train")
     p.add_argument("--pretrained", type=str, default=None,
-                   help="warm-start weights: a checkpoint dir of this package or a "
-                        "reference .pt (partial load, strict=False)")
+                   help="warm-start weights: a checkpoint dir of the port or of the JAX "
+                        "package, or a reference .pt (partial load, strict=False)")
     p.add_argument("--resume", action="store_true", default=True)
     p.add_argument("--no-resume", dest="resume", action="store_false")
     p.add_argument("--max-val-batches", type=int, default=None)

@@ -105,8 +105,8 @@ class TrainerConfig:
     # TP/FP matching on the device inside the eval step (ops/matching.py);
     # False takes the numpy greedy matcher (utils/metrics.py)
     device_matching: bool = True
-    # warm-start weights: a checkpoint dir of this package (best, else
-    # last) or a reference .pt file; missing keys and shape mismatches
+    # warm-start weights: a checkpoint dir of the port or of the JAX package
+    # (best, else last) or a reference .pt file; missing keys and shape mismatches
     # keep their init (the reference's strict=False load)
     pretrained: Optional[str] = None
     # early stopping after N epochs of val fitness (mAP50, else -val loss)
@@ -219,8 +219,8 @@ class Trainer:
     def _apply_pretrained(self, path: str) -> None:
         """Overlay pretrained weights onto the state's live model (the
         reference's strict=False partial load), in place, leaving the EMA
-        and the optimizer state as created: a checkpoint dir of this
-        package (best, else last) or a reference ``.pt`` file."""
+        and the optimizer state as created: a checkpoint dir of the port or
+        of the JAX package (best, else last) or a reference ``.pt`` file."""
         from yolo_scratch_tpu_torch.utils.weights import merge_pretrained, reference_state_dict
 
         p = Path(path)

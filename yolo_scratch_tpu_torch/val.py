@@ -12,14 +12,15 @@ best.pt [--per-class] [--coco-summary]``. Runs on ``cuda`` unless
 ``--device cpu``; it never falls back to the CPU on its own.
 
 ``--ckpt <dir> [--which best|last]`` evaluates a checkpoint directory that
-the port's trainer wrote (``train/checkpoints.py``); ``--ema`` evaluates its
-EMA parameters with the live BN statistics.
+the port's trainer or the JAX package's wrote (``train/checkpoints.py``);
+``--ema`` evaluates its EMA parameters with the live BN statistics.
 
 ``--model yolox --scale s`` evaluates a YOLOX (SimOTA loss for the val
 loss, ``yolox_eval_decode`` into the common postprocess), as the JAX CLI
 does; ``--data`` takes the synthetic set, a crater tree or a COCO directory
-(``train/cli.py::make_datasets``). The JAX package's orbax checkpoint
-directories are not read (ROADMAP C5b).
+(``train/cli.py::make_datasets``). A JAX run directory is read by the
+port's own code (``train/jax_checkpoints.py``: orbax's OCDBT, zarr v2 and
+zstd, or the npz fallback).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def main(argv=None):
     p.add_argument("--model", type=str, default="yolo11", choices=["yolo11", "yolox"],
                    help="model family (yolox: --scale n|tiny|s|m|l|x, n = nano)")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="checkpoint dir written by this package's trainer")
+                   help="checkpoint dir written by the port's or the JAX package's trainer")
     p.add_argument("--which", type=str, default="best", choices=["best", "last"])
     p.add_argument("--torch-ckpt", type=str, default=None,
                    help="reference-layout .pt checkpoint or state_dict")
