@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc builds the NMS and bottleneck libraries from
-   ``yolo_scratch_tpu_torch/csrc``, one nvcc per source, started together;
+   ``yolo_scratch_tpu_torch/csrc``, one nvcc per source, started together
+   with g++'s build of the host library (phase 16(a));
 3. kernels: each NMS wrapper against its plain version on seeded boxes
    (exactly equal keep masks), with its device time per call (the IoU mask
    and reduce kernels summed, and each on its own), the plain version's
@@ -82,7 +83,7 @@ Phases (any failure raises and exits non-zero):
    requests of varied sizes from 16 clients, every response equal to
    ``predict_paths``, a poisoned request failing alone, live and over a
    bf16 artifact; (e) ``infer.main --int8-calib 1`` on those PNGs, host
-   prep through the cv2 tier where the native library does not build.
+   prep through the port's native tier (phase 16).
    Kernel #1's counter is zeroed before each path and read after;
 10. multi-GPU, on the crater YOLO11n at 640, f32 with TF32 off: (a) two
    ranks on the one card over gloo, the sync step at global B=4 against
@@ -158,8 +159,7 @@ Phases (any failure raises and exits non-zero):
    near its detections: the device's TP marks accumulated as the host
    accumulates give the host matcher's mAP50-95 exactly, above 0, and
    ``metrics_from_marks`` gives it too unless a TP and an FP share a score,
-   which the two accumulations order differently) and ``ingest`` (32
-   files);
+   which the two accumulations order differently); ``ingest`` runs in 16(d);
 14. slice J, the JAX repo's last tools, kernel #1's counter zeroed just
    before each path and read just after: (a) ``gen_crater_synth`` and
    ``gen_coco_synth`` (nc=80) write 32 images each at 640, which
@@ -194,6 +194,21 @@ Phases (any failure raises and exits non-zero):
    training starts at the fixture's epoch + 1, and kernel #1 launches in
    its validation; (e) the reader's ms on each form and the decoder's MB/s
    on this host (host code).
+16. slice L, the port's own host tier (``csrc/yst_host.cpp`` with its
+   inflate, PNG and JPEG decoders; no codec library): (a) the library's
+   first build (phase 2), its ``ldd`` (no libpng, libjpeg or zlib), and the
+   package's load, which must succeed (no silent cv2 tier); (b) the
+   decoder against ``cv2.imdecode`` byte for byte on PNGs (gray, RGB) and
+   baseline/progressive JPEGs written by cv2 and PIL, at full size and at
+   ``IMREAD_REDUCED_*_2/4/8`` (scale_num 4, 2, 1); (c) ``predict_paths`` at
+   640, B=32, conf 0 on both rows for 64 PNGs, 64 JPEGs, and the JPEGs with
+   ``fast_jpeg``, kernel #1's counter zeroed just before each and read just
+   after (one launch a batch); the first batch's detections equal the
+   plain sweep on the same feats and predict_paths' own results; the
+   native batch within 2/255 of the cv2 tier's (PNG, full-size JPEG); (d)
+   ``bench.ingest`` (16 files) with its native rows, and phase 13's
+   ``bench.e2e`` line (64 files) on the native tier, beside the card's name
+   and power limit and the host's CPU.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it prints no result
@@ -205,6 +220,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import hashlib
+import io
 import json
 import os
 import statistics
@@ -216,6 +232,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -1361,7 +1378,7 @@ def yolox_train_phase(dev, ident: str) -> dict:
     log("YOLOX train step, top device activities (ms a step, count): " + "; ".join(
         f"{name} {ms:.2f} x{c}" for name, ms, c in tr["top"]))
 
-    # (e) the crater reader on the card's machine: cv2 decodes (no libpng there)
+    # (e) the crater reader on the card's machine, through the native decoders
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
         from pathlib import Path
 
@@ -1663,7 +1680,7 @@ def drive_daemon(argv: list, ref_pred, paths: list, ident: str, label: str) -> i
 
 def deploy_phase(dev, ident: str) -> dict:
     """9: int8 (a, b), export (c), the daemon live and over an artifact (d),
-    the infer CLI through the cv2 tier (e), on phase 6's crater YOLO11n."""
+    the infer CLI (e), on phase 6's crater YOLO11n."""
     from pathlib import Path
 
     from yolo_scratch_tpu_torch import export as E
@@ -2859,7 +2876,6 @@ def slice_i_phase(dev, ident: str) -> dict:
     if agree["device"] != agree["host"] and not ties:
         raise AssertionError(f"eval: device mAP50-95 {agree['device']} against host "
                              f"{agree['host']} with no TP and FP on one score")
-    run("(e) ingest", ING.cli, ["32", "1024"])
     log(f"13(e) on {ident}: latency {lat['device_latency_ms']} ms (p50 "
         f"{lat['launch_p50_ms']}, p99 {lat['launch_p99_ms']}); export ratio {ex['ratio']}; "
         f"e2e host tier {e2e['host_tier']}; serving {cell['achieved_img_s']} img/s; eval "
@@ -2867,7 +2883,7 @@ def slice_i_phase(dev, ident: str) -> dict:
         f"metrics_from_marks {agree['device']} ({ties} detections share a score with one of "
         f"the other kind), {ev['detections_per_image']:.1f} detections an image")
     log(f"slice I phase: {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launches)
+    return dict(launches=launches, e2e=e2e)
 
 
 # slice J (phase 14): the JAX repo's last tools
@@ -3277,6 +3293,270 @@ def slice_k_phase(dev, ident: str) -> dict:
     return dict(launches=launches)
 
 
+# the host tier (phase 16): the port's own PNG/JPEG decoders under predict_paths
+HOST_SRC = (1024, 768)  # files larger than the canvas: fast_jpeg decodes them at 5/8
+HOST_FILES = 64  # two B=32 batches an arm
+# the native tier's batch against the cv2 tier's: both resize with cv2's
+# half-pixel geometry but round differently (tests/test_native_loader.py)
+CV2_TIER_ATOL = 2 / 255
+
+
+HOST_BUILD_S: list = []  # the host library's first build in this process
+
+
+def build_host_library() -> None:
+    """The package's first load of the host library, which g++ builds from
+    the port's sources (a build left by an earlier run is removed first)."""
+    import shutil
+
+    from yolo_scratch_tpu_torch.data import native
+
+    native.LIBRARY.unlink(missing_ok=True)
+    shutil.rmtree(native.OBJ_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    native.load()
+    HOST_BUILD_S.append(time.perf_counter() - t0)
+
+
+def host_build_path() -> None:
+    """16(a): the host library's first build (phase 2 starts it beside the
+    nvcc builds; one g++ a source, then the link), its ``ldd``, and the
+    package's own load, which must succeed: no silent cv2 tier."""
+    from yolo_scratch_tpu_torch.data import native
+
+    if not HOST_BUILD_S:
+        build_host_library()
+    needed = subprocess.run(["ldd", str(native.LIBRARY)], capture_output=True, text=True,
+                            check=True).stdout
+    if any(lib in needed for lib in ("png", "jpeg", "libz.")):
+        raise AssertionError(f"the host library links a codec library:\n{needed}")
+    if not native.available():
+        raise AssertionError(f"the native host tier does not load: {native._load_error}")
+    log(f"16(a) host library: g++ built {len(native.SOURCES)} sources and linked them in "
+        f"{HOST_BUILD_S[0]:.2f} s at first load "
+        f"(needs {', '.join(sorted(n.split()[0] for n in needed.splitlines() if '=>' in n))}); "
+        f"native tier on")
+
+
+def host_files(root: Path, n: int) -> dict:
+    """``n`` crater-like images at ``HOST_SRC``: gray PNGs (cv2) and RGB
+    JPEGs (PIL, 4:2:0, quality 90), {"png": [...], "jpeg": [...]}. Gray
+    PNGs, because cv2 turns colour PNGs to gray with its own weights where
+    libpng (both native tiers) mixes in linear light; a JPEG's gray is its
+    Y plane in every tier."""
+    from PIL import Image
+
+    w, h = HOST_SRC
+    rng = np.random.RandomState(16)
+    y, x = np.mgrid[0:h, 0:w]
+    img = 110 + 50 * np.sin(x / 9.0) * np.cos(y / 11.0)
+    for cx, cy, r in rng.uniform(0.1, 0.9, (12, 3)) * [w, h, 60]:
+        img -= 60 * np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (2 * r * r + 1))
+    base = np.clip(img, 6, 249).astype(np.int16)
+    out = {"png": [], "jpeg": []}
+    for i in range(n):  # each file the scene shifted, with its own noise
+        g = (np.roll(base, (37 * i, 53 * i), (0, 1))
+             + rng.randint(-6, 7, base.shape)).astype(np.uint8)
+        rgb = np.stack([g, (g >> 1) + (g >> 2) + 40, 255 - g], -1)
+        out["png"].append(str(root / f"h{i:03d}.png"))
+        cv2.imwrite(out["png"][-1], g)
+        out["jpeg"].append(str(root / f"h{i:03d}.jpg"))
+        Image.fromarray(rgb).save(out["jpeg"][-1], "JPEG", quality=90)
+    return out
+
+
+def decoder_vs_cv2_path(root: Path) -> None:
+    """16(b): the port's decoder against ``cv2.imdecode`` (OpenCV's own
+    libpng and libjpeg-turbo) on files cv2 and PIL write here: PNGs exactly
+    (gray and RGB), baseline and progressive JPEGs exactly at full size and
+    at ``IMREAD_REDUCED_*_2/4/8`` (scale_num 4, 2, 1)."""
+    from PIL import Image
+
+    from yolo_scratch_tpu_torch.data import native
+
+    rng = np.random.RandomState(161)
+    y, x = np.mgrid[0:479, 0:641]
+    base = np.sin(x / 13.0) * 60 + np.cos(y / 9.0) * 50 + 128
+    rgb = np.clip(np.stack([base + rng.randn(479, 641) * 15 + 20 * k for k in range(3)], -1),
+                  0, 255).astype(np.uint8)
+    files = {}
+    for name, img in (("gray", rgb[..., 0]), ("rgb", rgb)):
+        files[f"png_{name}_cv2"] = cv2.imencode(".png", img if img.ndim == 2 else img[..., ::-1])[1]
+        b = io.BytesIO()
+        Image.fromarray(img).save(b, "PNG")
+        files[f"png_{name}_pil"] = b.getvalue()
+    for prog in (False, True):
+        for sub in (0, 2):
+            b = io.BytesIO()
+            Image.fromarray(rgb).save(b, "JPEG", quality=88, subsampling=sub, progressive=prog)
+            files[f"jpeg_pil_{'444' if sub == 0 else '420'}{'_prog' if prog else ''}"] = b.getvalue()
+        files[f"jpeg_cv2{'_prog' if prog else ''}"] = cv2.imencode(
+            ".jpg", rgb[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 92, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                     int(prog)])[1]
+        b = io.BytesIO()
+        Image.fromarray(rgb[..., 1]).save(b, "JPEG", quality=80, progressive=prog)
+        files[f"jpeg_gray{'_prog' if prog else ''}"] = b.getvalue()
+    reduced = {8: (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE),
+               4: (cv2.IMREAD_REDUCED_COLOR_2, cv2.IMREAD_REDUCED_GRAYSCALE_2),
+               2: (cv2.IMREAD_REDUCED_COLOR_4, cv2.IMREAD_REDUCED_GRAYSCALE_4),
+               1: (cv2.IMREAD_REDUCED_COLOR_8, cv2.IMREAD_REDUCED_GRAYSCALE_8)}
+    compared = 0
+    for name, data in files.items():
+        data = bytes(data)
+        gray_src = "gray" in name
+        for num, (flag_rgb, flag_gray) in reduced.items():
+            if name.startswith("png") and num != 8:
+                continue
+            for ch in (1, 3):
+                if name.startswith("png") and (ch == 1) != gray_src:
+                    continue  # cv2 converts PNG colour with its own weights
+                want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                                    flag_gray if ch == 1 else flag_rgb)
+                want = want[..., None] if ch == 1 else want[..., ::-1]
+                got = native.decode_bytes(data, ch, num)
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    d = (np.abs(got.astype(int) - want.astype(int)).max()
+                         if got.shape == want.shape else f"shape {got.shape} vs {want.shape}")
+                    raise AssertionError(f"16(b) {name} ch{ch} {num}/8: the port's decode "
+                                         f"differs from cv2.imdecode ({d})")
+                compared += 1
+    log(f"16(b) decoder: {compared} decodes of {len(files)} cv2/PIL files (PNG gray/RGB, "
+        f"JPEG baseline/progressive 4:4:4/4:2:0/gray, full size and cv2's reduced 1/2, 1/4, "
+        f"1/8) equal cv2.imdecode byte for byte (cv2 {cv2.__version__})")
+
+
+def host_predict_path(dev, ident: str, files: dict) -> int:
+    """16(c): ``predict_paths`` at 640, B=32 on both rows through the native
+    tier, for PNG, JPEG and JPEG with ``fast_jpeg``. Kernel #1's counter is
+    zeroed just before each arm and read just after: one launch a batch.
+    The first batch's conf-0 detections equal the plain sweep on the same
+    feats, and predict_paths' own results for it equal those unmapped; the
+    prepared batch lies within ``CV2_TIER_ATOL`` of the cv2 tier's (PNG,
+    and JPEG decoded at full size). Returns kernel #1's launches."""
+    from yolo_scratch_tpu_torch.host import detections, prepare_images_cv2
+
+    launches = 0
+    summary = []
+    for row, cfg_name, ch, nc in ROWS:
+        model = eval_model(cfg_name, ch, nc).to(dev)
+        for fmt, fast in (("png", False), ("jpeg", False), ("jpeg", True)):
+            paths = files[fmt]
+            pred = Predictor(model, PredictorConfig(img_size=IMGSZ, batch_size=BATCH,
+                                                    conf_threshold=0.0, fast_jpeg=fast),
+                             device=dev)
+            with cudnn_benchmark_off():
+                list(pred.predict_paths(paths[:BATCH]))  # warm-up
+                torch.cuda.synchronize()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                out = list(pred.predict_paths(paths))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = K.launches["nms_sweep_batched"]
+                batches = -(-len(paths) // BATCH)
+                if n != batches or len(out) != len(paths):
+                    raise AssertionError(f"16(c) {row} {fmt} fast_jpeg={fast}: kernel #1 "
+                                         f"launched {n} times for {batches} batches")
+                launches += n
+                imgs, meta = pred._prepare(paths[:BATCH])
+                if imgs.dtype != np.uint8:
+                    raise AssertionError(f"16(c): the native tier gave {imgs.dtype}, not uint8")
+                with torch.inference_mode():
+                    feats = pred.forward_feats(imgs)
+                    got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+            kept = int(got[..., 6].sum())
+            if not torch.equal(got, ref) or kept == 0:
+                raise AssertionError(f"16(c) {row} {fmt}: conf-0 detections differ from the "
+                                     f"plain sweep ({kept} kept)")
+            packed = ref.cpu().numpy()
+            for j in range(BATCH):
+                want = detections(packed[j], meta[j], IMGSZ)
+                have = out[j]
+                if have["labels"] != want["labels"] or not np.allclose(
+                        have["boxes"], want["boxes"], rtol=0, atol=1e-3) or not np.allclose(
+                        have["scores"], want["scores"], rtol=0, atol=1e-6):
+                    raise AssertionError(f"16(c) {row} {fmt}: predict_paths' image {j} differs "
+                                         f"from the plain sweep's detections")
+            note = ""
+            if not fast:  # fast_jpeg resizes from a smaller decode than cv2's
+                cv_imgs, cv_meta = prepare_images_cv2(paths[:BATCH], pred.cfg, ch)
+                diff = float(np.abs(imgs.astype(np.float32) / 255 - cv_imgs).max())
+                if diff > CV2_TIER_ATOL + 1e-6 or not np.allclose(meta, cv_meta):
+                    raise AssertionError(f"16(c) {row} {fmt}: the native batch lies "
+                                         f"{diff * 255:.1f}/255 from the cv2 tier's")
+                note = f", |native - cv2| {diff * 255:.0f}/255"
+            summary.append(f"{row} {fmt}{' fast_jpeg' if fast else ''} "
+                           f"{len(paths) / wall:.1f} img/s ({kept} kept{note})")
+    log(f"16(c) predict_paths at {IMGSZ}, B={BATCH}, conf 0, {HOST_FILES} files of "
+        f"{HOST_SRC[0]}x{HOST_SRC[1]} an arm, native tier, on {ident}: "
+        + "; ".join(summary) + f"; kernel #1 launched {launches} times, once a batch")
+    return launches
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``lscpu`` (else ``/proc/cpuinfo``) names it: its
+    model name, else (a sandbox may report it as "unknown") its vendor,
+    family and model numbers."""
+    import platform
+
+    try:
+        info = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except OSError:
+        info = ""
+    cpuinfo = Path("/proc/cpuinfo")
+    info += cpuinfo.read_text() if cpuinfo.exists() else ""
+    fields = {}
+    for line in info.splitlines():
+        key, _, value = line.partition(":")
+        if value.strip():
+            fields.setdefault(key.strip().lower(), value.strip())
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    parts = [f"{k} {fields[k]}" for k in ("vendor id", "cpu family", "model", "architecture")
+             if k in fields]
+    return ", ".join(parts) or platform.machine()
+
+
+def host_bench_path(ident: str, e2e: dict) -> None:
+    """16(d): ``bench.ingest`` (16 files of 1024^2) with its native rows,
+    and phase 13's ``bench.e2e`` line (64 files), which must have run on
+    the native tier."""
+    ing = ING.cli(["16", "1024"])
+    if "native" not in ing["tiers"] or "smooth_jpeg_uint8_fastscale_img_per_s" not in ing:
+        raise AssertionError(f"16(d) ingest ran without its native rows: {ing['tiers']}")
+    if e2e["host_tier"] != "native" or not e2e["nms_launches"]:
+        raise AssertionError(f"16(d): phase 13's e2e ran on the {e2e['host_tier']} tier")
+    keys = [k for k in ing if k.endswith("_img_per_s")]
+    log(f"16(d) on {ident}, host {host_cpu()} ({os.cpu_count()} cores): ingest img/s "
+        + ", ".join(f"{k[:-len('_img_per_s')]} {ing[k]}" for k in keys)
+        + "; phase 13's e2e img/s (native tier) "
+        + ", ".join(f"{r['fmt']}{' fast_jpeg' if r['fast_jpeg'] else ''} {r['img_per_s']}"
+                    for r in e2e["rows"]))
+
+
+def host_phase(dev, ident: str, e2e: dict) -> dict:
+    """16: the port's own host tier on the card's machine; ``e2e`` is phase
+    13's e2e line. Returns kernel #1's launches."""
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(label: str) -> None:
+        marks.append(f"{label} {time.perf_counter() - t_phase:.1f}")
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        host_build_path()
+        decoder_vs_cv2_path(Path(tmp))
+        mark("(a)+(b)")
+        files = host_files(Path(tmp), HOST_FILES)
+        mark("files")
+        launches = host_predict_path(dev, ident, files)
+        mark("(c)")
+    host_bench_path(ident, e2e)
+    mark("(d)")
+    log(f"host phase: {time.perf_counter() - t_phase:.1f} s (cumulative s: {', '.join(marks)})")
+    return dict(launches=launches)
+
+
 def across_cards(dev, ident: str) -> int:
     """Phase 10(e) on a machine with 2 or more cards: (c) over NCCL with one
     card a rank, (d) over every card, and the GPU test of a kernel launched
@@ -3314,10 +3594,11 @@ def main() -> int:
     log(ident)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for built in [pool.submit(K.load_kernels), pool.submit(CK.load_kernels)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, g++ beside, started together
+        for built in [pool.submit(K.load_kernels), pool.submit(CK.load_kernels),
+                      pool.submit(build_host_library)]:
             built.result()
-    log(f"build: NMS and bottleneck kernels built and loaded in "
+    log(f"build: NMS and bottleneck kernels and the host library built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
     timed = kernel_phase(dev)
@@ -3337,6 +3618,7 @@ def main() -> int:
     si = slice_i_phase(dev, ident)
     sj = slice_j_phase(dev, ident)
     sk = slice_k_phase(dev, ident)
+    hp = host_phase(dev, ident, si["e2e"])
 
     # kernel #1 runs on the Predictor's, the eval step's and the trainer's
     # validation paths of both families, on phase 9's int8 Predictor,
@@ -3345,14 +3627,15 @@ def main() -> int:
     # checkpoint deploy (infer, export, serve) and blocked top-k paths, and on
     # phase 12's trainer, val, overfit and eval_quant runs, and on phase 13's
     # benches, and on phase 14's trainer runs and profile_forward --full, and
-    # on phase 15's Predictor and resumed trainer over the JAX checkpoint; #2
-    # on the B=1 postprocess of both families
+    # on phase 15's Predictor and resumed trainer over the JAX checkpoint, and
+    # on phase 16's predict_paths through the native host tier; #2 on the B=1
+    # postprocess of both families
     launches = {"nms_sweep_batched": (sl["main"]["nms_sweep_batched"] + ev["launches"]
                                       + tr["launches"] + yp["main"]["nms_sweep_batched"]
                                       + ye["launches"] + yt["launches"] + dp["launches"]
                                       + mg["launches"] + sg["launches"] + sh["launches"]
                                       + si["launches"] + sj["launches"]
-                                      + sk["launches"]),
+                                      + sk["launches"] + hp["launches"]),
                 "nms_sweep": sl["b1"]["nms_sweep"] + yp["b1"]["nms_sweep"],
                 "fused_bottleneck": bn["launches"]}
     table = [dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],

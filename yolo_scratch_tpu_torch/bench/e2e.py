@@ -11,10 +11,10 @@ device, the fused forward + decode + kernel #1, the fetch. It sweeps format
 x the in-flight depth, on smooth synthetic grayscale images. Host and card
 are both timed, so run it on a quiet machine.
 
-``host_tier`` says which host prep ran (``host.py``): ``native``
-(``csrc/yst_host.cpp``) or ``cv2`` where that library does not build (no
-libpng/libjpeg). Each arm warms up on one batch, then streams all ``--n``
-files once (one window).
+``host_tier`` says which host prep ran (``host.py``): ``native`` (the
+port's own ``csrc/yst_host.cpp`` and codecs, which build wherever g++ does)
+or ``cv2`` where that library does not build (no compiler). Each arm warms
+up on one batch, then streams all ``--n`` files once (one window).
 
 Prints one JSON line with ``rows`` (``fmt``, ``fast_jpeg``, ``inflight``,
 ``img_per_s``, ``wall_s``), as the JAX script's result, plus ``device``.

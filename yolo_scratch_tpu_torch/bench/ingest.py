@@ -9,12 +9,13 @@ img/s for synthetic grayscale PNGs and JPEGs (``noise``, the codecs' worst
 case, and ``smooth``) resized to ``dst_size`` (stretch, as the JAX script),
 best of 3, for each tier that runs here:
 
-* ``native`` (``data/native.py``, ``csrc/yst_host.cpp``): uint8 and
+* ``native`` (``data/native.py``; the port's ``csrc/yst_host.cpp`` with
+  its own PNG and JPEG decoders): uint8 and
   float32 batches, and for JPEGs the decode-time downscale (``_fastscale``);
   keys ``{content}_{fmt}_{dtype}[_fastscale]_img_per_s`` as the JAX
   script's;
-* ``cv2`` (``host.py::prepare_images_cv2``, the tier where the native
-  library does not build): float32 only, keys prefixed ``cv2_``.
+* ``cv2`` (``host.py::prepare_images_cv2``, the tier a machine without a
+  compiler takes): float32 only, keys prefixed ``cv2_``.
 
 ``loader`` times a ``Loader`` epoch (decode + resize + collate, cache off)
 over a crater-layout tree per worker count. The work is the host's alone:

@@ -1,26 +1,53 @@
-"""ctypes binding for the native host pipeline (``csrc/yst_host.cpp``: image
-decode + letterbox on a thread pool), the port's own copy of
-``yolo_scratch_tpu/data/native.py``.
+"""ctypes binding for the port's native host pipeline
+(``yolo_scratch_tpu_torch/csrc/yst_host.cpp``: image decode + letterbox on a
+thread pool), the counterpart of ``yolo_scratch_tpu/data/native.py``.
 
-The library is compiled with g++ at first use into the port's build
-directory (never into ``csrc/``). There is no cv2 fallback: if it cannot be
-built, :func:`prepare_batch` and :func:`decode_file` raise with the
-compiler's output, and :func:`available` says False (the dataset readers
-then decode through cv2 or PIL, as the JAX package's do).
+The library is the port's own: its PNG decoder (``yst_png.cpp`` over the
+inflate of ``yst_inflate.cpp``) and JPEG decoder (``yst_jpeg.cpp``) give the
+bytes that the JAX tier's libpng and libjpeg-turbo give, and it links no
+codec library, so it builds wherever g++ does (the card's machine too). It
+is compiled at first use into the port's build directory. There is no cv2
+fallback inside: if it cannot be built, :func:`prepare_batch` and
+:func:`decode_file` raise with the compiler's output, and :func:`available`
+says False (callers then decode through cv2 or PIL, as the JAX package's do).
 """
 
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
 
 from yolo_scratch_tpu_torch.utils.build import BUILD_DIR, PKG, compile_library
 
-_SOURCE = PKG.parent / "csrc" / "yst_host.cpp"
+CSRC = PKG / "csrc"
+SOURCES = [CSRC / f for f in ("yst_host.cpp", "yst_inflate.cpp", "yst_png.cpp", "yst_jpeg.cpp")]
+HEADERS = [CSRC / "yst_codecs.h"]
+LIBRARY = BUILD_DIR / "libyst_host.so"
+OBJ_DIR = BUILD_DIR / "libyst_host.obj"
 _lib: ctypes.CDLL | None = None
 _load_error: Exception | None = None
+
+
+def build() -> Path:
+    """Compile the sources (one g++ each, started together) and link them
+    into ``LIBRARY``; each step is skipped while its output is newer than
+    its inputs."""
+    missing = [str(p) for p in SOURCES + HEADERS if not p.exists()]
+    if missing:
+        raise RuntimeError(f"host library sources not found: {missing}")
+
+    def compile_one(src: Path) -> Path:
+        return compile_library(["g++", "-O3", "-fPIC", "-std=c++17", "-c", str(src)],
+                               OBJ_DIR / f"{src.stem}.o", [src, *HEADERS], timeout=240)
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        objs = list(pool.map(compile_one, SOURCES))
+    return compile_library(["g++", "-shared", *map(str, objs), "-pthread"], LIBRARY, objs,
+                           timeout=120)
 
 
 def load() -> ctypes.CDLL:
@@ -28,16 +55,11 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not _SOURCE.exists():
-        raise RuntimeError(f"host library source {_SOURCE} not found")
-    so = compile_library(
-        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SOURCE),
-         "-lpng", "-ljpeg", "-lz", "-pthread"],
-        BUILD_DIR / "libyst_host.so", [_SOURCE], timeout=240)
+    so = build()
     lib = ctypes.CDLL(str(so))
     lib.yst_version.restype = ctypes.c_int
-    if lib.yst_version() < 2:  # the fast_jpeg argument arrived in v2
-        raise RuntimeError(f"{so}: host library ABI older than v2")
+    if lib.yst_version() < 3:  # v3: the port's own codecs, yst_decode_memory
+        raise RuntimeError(f"{so}: host library ABI older than v3")
     args = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_uint8, ctypes.c_int, ctypes.c_int,
@@ -50,6 +72,12 @@ def load() -> ctypes.CDLL:
     lib.yst_decode_file.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.yst_decode_file.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.yst_decode_memory.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.yst_decode_memory.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.yst_inflate.restype = ctypes.c_int
+    lib.yst_inflate.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                                ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
     lib.yst_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     _lib = lib
     return _lib
@@ -61,9 +89,16 @@ def available() -> bool:
     if _lib is None and _load_error is None:
         try:
             load()
-        except (RuntimeError, OSError) as e:  # no compiler, no libpng/libjpeg
+        except (RuntimeError, OSError) as e:  # no compiler
             _load_error = e
     return _lib is not None
+
+
+def _take(lib, ptr, w, h, channels: int) -> np.ndarray:
+    n = w.value * h.value * channels
+    arr = np.ctypeslib.as_array(ptr, shape=(n,)).copy().reshape(h.value, w.value, channels)
+    lib.yst_free(ptr)
+    return arr
 
 
 def decode_file(path: str, channels: int = 1) -> np.ndarray:
@@ -73,10 +108,32 @@ def decode_file(path: str, channels: int = 1) -> np.ndarray:
     ptr = lib.yst_decode_file(str(path).encode(), channels, ctypes.byref(w), ctypes.byref(h))
     if not ptr:
         raise IOError(f"native decode failed: {path}")
-    n = w.value * h.value * channels
-    arr = np.ctypeslib.as_array(ptr, shape=(n,)).copy().reshape(h.value, w.value, channels)
-    lib.yst_free(ptr)
-    return arr
+    return _take(lib, ptr, w, h, channels)
+
+
+def decode_bytes(data: bytes, channels: int = 1, scale_num: int = 8) -> np.ndarray:
+    """Decode PNG/JPEG bytes -> (h, w, channels) uint8; a JPEG at
+    ``scale_num``/8 of its size (libjpeg's scaled IDCT), a PNG at full size."""
+    lib = load()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    ptr = lib.yst_decode_memory(bytes(data), len(data), channels, scale_num, ctypes.byref(w),
+                                ctypes.byref(h))
+    if not ptr:
+        raise IOError("native decode failed")
+    return _take(lib, ptr, w, h, channels)
+
+
+INFLATE_STATUS = ("ok", "bad adler32", "truncated", "bad data", "out of room")
+
+
+def inflate(data: bytes, limit: int) -> Tuple[str, bytes]:
+    """Inflate one zlib stream into at most ``limit`` bytes -> (status, out),
+    status one of :data:`INFLATE_STATUS`."""
+    lib = load()
+    out = ctypes.create_string_buffer(max(limit, 1))
+    n = ctypes.c_size_t()
+    st = lib.yst_inflate(bytes(data), len(data), out, limit, ctypes.byref(n))
+    return INFLATE_STATUS[st], out.raw[: n.value]
 
 
 def prepare_batch(
@@ -92,9 +149,9 @@ def prepare_batch(
     """Decode + resize ``paths`` -> (imgs (N, S, S, C) ``dtype`` — uint8, or
     float32 in [0, 1] — meta (N, 5) [w, h, scale, px, py], status (N,)).
 
-    ``fast_jpeg`` decodes JPEGs at the smallest libjpeg M/8 scale covering
-    the canvas (DCT-domain downscale; pixels differ slightly from a full
-    decode + bilinear resize). PNGs are unaffected."""
+    ``fast_jpeg`` decodes JPEGs at the smallest M/8 scale covering the
+    canvas (the scaled IDCTs of libjpeg-turbo; pixels differ slightly from a
+    full decode + bilinear resize). PNGs are unaffected."""
     lib = load()
     n = len(paths)
     meta = np.empty((n, 5), np.float32)

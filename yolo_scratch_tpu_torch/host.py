@@ -4,9 +4,9 @@ the packed output layout, image decode + letterbox, the unmapping of boxes
 to original pixels, and the streaming loop. It imports no model code, so a
 process that serves an artifact never builds a model.
 
-Host prep takes the native library (``csrc/yst_host.cpp``) where it builds
-and cv2 where it does not (the card's machine has no libpng/libjpeg), the
-JAX package's own two tiers, chosen by the same test
+Host prep takes the port's native library (``csrc/yst_host.cpp`` and its own
+PNG/JPEG decoders, no codec library) where it builds, and cv2 where it does
+not (no compiler): the JAX package's own two tiers, chosen by the same test
 (``data/native.py::available``).
 """
 
@@ -36,7 +36,7 @@ class PredictorConfig:
     class_aware_nms: bool = False
     host_threads: int = 4
     u8_transfer: bool = True  # ship uint8 to the device; /255 runs there
-    fast_jpeg: bool = True  # libjpeg M/8 decode-time downscale (see data/native.py)
+    fast_jpeg: bool = True  # M/8 decode-time JPEG downscale, scaled IDCT (data/native.py)
     inflight: int = 3  # batches predict_paths keeps in flight
     nms_impl: str = "kernel"  # the CUDA sweep; "pairwise" or "tiled" for ops/nms.py
     # Two-stage blocked candidate selection (ops/decode.py::topk_scores),
