@@ -200,12 +200,21 @@ Phases (any failure raises and exits non-zero):
    package's load, which must succeed (no silent cv2 tier); (b) the
    decoder against ``cv2.imdecode`` byte for byte on PNGs (gray, RGB) and
    baseline/progressive JPEGs written by cv2 and PIL, at full size and at
-   ``IMREAD_REDUCED_*_2/4/8`` (scale_num 4, 2, 1); (c) ``predict_paths`` at
-   640, B=32, conf 0 on both rows for 64 PNGs, 64 JPEGs, and the JPEGs with
-   ``fast_jpeg``, kernel #1's counter zeroed just before each and read just
-   after (one launch a batch); the first batch's detections equal the
-   plain sweep on the same feats and predict_paths' own results; the
-   native batch within 2/255 of the cv2 tier's (PNG, full-size JPEG); (d)
+   ``IMREAD_REDUCED_*_2/4/8`` (scale_num 4, 2, 1); every committed fixture
+   of ``tests/fixtures/host_codecs`` (arithmetic-coded JPEGs, progressive
+   ones cut short, PNGs with gAMA/sRGB/cHRM/iCCP/sBIT), each cut, channels
+   1 and 3 and scale_num 8/5/4/2/1, equal to the libjpeg-turbo/libpng
+   decode's sha256 in its ``digests.json``; the host decode ms of an
+   arithmetic-coded 1024x768 JPEG against its Huffman source (full size,
+   5/8) and of a block-smoothed cut progressive one; (c) ``predict_paths``
+   at 640, B=32, conf 0 on both rows for 64 PNGs, 64 JPEGs, the JPEGs with
+   ``fast_jpeg``, and 64 paths cycling the four arithmetic-coded fixtures
+   with and without ``fast_jpeg``, kernel #1's counter zeroed just before
+   each and read just after (one launch a batch); the first batch's
+   detections equal the plain sweep on the same feats and predict_paths'
+   own results; the native batch within 2/255 of the cv2 tier's (PNG,
+   full-size JPEG), and an arithmetic fixture's batch equal to its Huffman
+   source's; (d)
    ``bench.ingest`` (16 files) with its native rows, and phase 13's
    ``bench.e2e`` line (64 files) on the native tier, beside the card's name
    and power limit and the host's CPU.
@@ -3425,6 +3434,73 @@ def decoder_vs_cv2_path(root: Path) -> None:
         f"1/8) equal cv2.imdecode byte for byte (cv2 {cv2.__version__})")
 
 
+CODEC_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "host_codecs"
+
+
+def fixture_bytes(name: str, cut) -> bytes:
+    data = (CODEC_FIXTURES / name).read_bytes()
+    return data if cut is None else data[: int(len(data) * cut)]
+
+
+def host_decode_ms(data: bytes, ch: int, num: int, reps: int) -> float:
+    """Median ms of one ``native.decode_bytes`` call (host code, one thread)."""
+    from yolo_scratch_tpu_torch.data import native
+
+    native.decode_bytes(data, ch, num)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        native.decode_bytes(data, ch, num)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def codec_fixture_path(ident: str) -> None:
+    """16(b), continued: every committed codec fixture (and each listed cut
+    of it) at channels 1 and 3 and each scale_num in ``digests.json`` equals
+    the sha256 and shape of libjpeg-turbo/libpng's decode there, or fails
+    where they fail; then the host decode times of an arithmetic-coded
+    1024x768 JPEG against its Huffman source and of a smoothed cut."""
+    from yolo_scratch_tpu_torch.data import native
+
+    digests = json.loads((CODEC_FIXTURES / "digests.json").read_text())
+    for name, info in digests["files"].items():
+        data = (CODEC_FIXTURES / name).read_bytes()
+        if hashlib.sha256(data).hexdigest() != info["sha256"]:
+            raise AssertionError(f"16(b) fixture {name} is not the committed file")
+    checked = 0
+    for key, want in digests["decodes"].items():
+        name, cut, ch, num = key.split("|")
+        data = fixture_bytes(name, float(cut) if cut else None)
+        try:
+            got = native.decode_bytes(data, int(ch), int(num))
+        except IOError:
+            got = None
+        if want is None or got is None:
+            if (want is None) != (got is None):
+                raise AssertionError(f"16(b) {key}: the port's status differs from the "
+                                     f"reference's (reference fails: {want is None})")
+        elif (list(got.shape) != want["shape"]
+              or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]):
+            raise AssertionError(f"16(b) {key}: the port's decode is not the reference's "
+                                 f"({list(got.shape)} vs {want['shape']})")
+        checked += 1
+    arith, huff = fixture_bytes("crater_arith_0.jpg", None), fixture_bytes("crater_huffman_0.jpg",
+                                                                            None)
+    rows = []
+    for num in (8, 5):
+        ms_a, ms_h = host_decode_ms(arith, 3, num, 15), host_decode_ms(huff, 3, num, 15)
+        rows.append(f"{num}/8: arithmetic {ms_a:.2f} ms ({1e3 / ms_a:.1f} img/s), Huffman "
+                    f"{ms_h:.2f} ms ({1e3 / ms_h:.1f} img/s), x{ms_a / ms_h:.2f}")
+    cut = fixture_bytes("crater_prog_0.jpg", 0.35)
+    whole = fixture_bytes("crater_prog_0.jpg", None)
+    ms_cut, ms_whole = host_decode_ms(cut, 3, 8, 15), host_decode_ms(whole, 3, 8, 15)
+    log(f"16(b) codec fixtures: {checked} decodes of {len(digests['files'])} fixtures equal "
+        f"libjpeg-turbo 2.1.5 / libpng 1.6.39's (digests.json); host decode of a 1024x768 "
+        f"4:2:0 JPEG to RGB on {host_cpu()}, one thread, beside {ident}: " + "; ".join(rows)
+        + f"; progressive cut to 35% (block-smoothed) {ms_cut:.2f} ms, whole {ms_whole:.2f} ms")
+
+
 def host_predict_path(dev, ident: str, files: dict) -> int:
     """16(c): ``predict_paths`` at 640, B=32 on both rows through the native
     tier, for PNG, JPEG and JPEG with ``fast_jpeg``. Kernel #1's counter is
@@ -3439,7 +3515,8 @@ def host_predict_path(dev, ident: str, files: dict) -> int:
     summary = []
     for row, cfg_name, ch, nc in ROWS:
         model = eval_model(cfg_name, ch, nc).to(dev)
-        for fmt, fast in (("png", False), ("jpeg", False), ("jpeg", True)):
+        for fmt, fast in (("png", False), ("jpeg", False), ("jpeg", True), ("arith", False),
+                          ("arith", True)):
             paths = files[fmt]
             pred = Predictor(model, PredictorConfig(img_size=IMGSZ, batch_size=BATCH,
                                                     conf_threshold=0.0, fast_jpeg=fast),
@@ -3478,7 +3555,13 @@ def host_predict_path(dev, ident: str, files: dict) -> int:
                     raise AssertionError(f"16(c) {row} {fmt}: predict_paths' image {j} differs "
                                          f"from the plain sweep's detections")
             note = ""
-            if not fast:  # fast_jpeg resizes from a smaller decode than cv2's
+            if fmt == "arith":  # the Huffman source's batch, byte for byte
+                twin, twin_meta = pred._prepare([str(CODEC_FIXTURES / "crater_huffman_0.jpg")])
+                if not (np.array_equal(twin, imgs[:1]) and np.array_equal(twin_meta, meta[:1])):
+                    raise AssertionError(f"16(c) {row} arith fast_jpeg={fast}: the batch differs "
+                                         "from its Huffman source's")
+                note = ", = its Huffman source's batch"
+            elif not fast:  # fast_jpeg resizes from a smaller decode than cv2's
                 cv_imgs, cv_meta = prepare_images_cv2(paths[:BATCH], pred.cfg, ch)
                 diff = float(np.abs(imgs.astype(np.float32) / 255 - cv_imgs).max())
                 if diff > CV2_TIER_ATOL + 1e-6 or not np.allclose(meta, cv_meta):
@@ -3487,8 +3570,9 @@ def host_predict_path(dev, ident: str, files: dict) -> int:
                 note = f", |native - cv2| {diff * 255:.0f}/255"
             summary.append(f"{row} {fmt}{' fast_jpeg' if fast else ''} "
                            f"{len(paths) / wall:.1f} img/s ({kept} kept{note})")
-    log(f"16(c) predict_paths at {IMGSZ}, B={BATCH}, conf 0, {HOST_FILES} files of "
-        f"{HOST_SRC[0]}x{HOST_SRC[1]} an arm, native tier, on {ident}: "
+    log(f"16(c) predict_paths at {IMGSZ}, B={BATCH}, conf 0, {HOST_FILES} paths of "
+        f"{HOST_SRC[0]}x{HOST_SRC[1]} an arm (arith: the four fixtures in turn), native tier, "
+        f"on {ident}: "
         + "; ".join(summary) + f"; kernel #1 launched {launches} times, once a batch")
     return launches
 
@@ -3546,8 +3630,11 @@ def host_phase(dev, ident: str, e2e: dict) -> dict:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         host_build_path()
         decoder_vs_cv2_path(Path(tmp))
+        codec_fixture_path(ident)
         mark("(a)+(b)")
         files = host_files(Path(tmp), HOST_FILES)
+        files["arith"] = [str(CODEC_FIXTURES / f"crater_arith_{i % 4}.jpg")
+                          for i in range(HOST_FILES)]
         mark("files")
         launches = host_predict_path(dev, ident, files)
         mark("(c)")

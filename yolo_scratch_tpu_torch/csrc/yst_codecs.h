@@ -34,6 +34,9 @@ struct InflateResult {
 InflateResult zlib_inflate(const uint8_t* src, size_t n, std::vector<uint8_t>* out,
                            size_t limit);
 
+// The Adler-32 of ``d[0, n)`` (RFC 1950).
+uint32_t adler32(const uint8_t* d, size_t n);
+
 // ------------------------------------------------------------------- PNG
 // (yst_png.cpp) 8-bit gray (channels 1) or RGB (channels 3), converted as
 // libpng's simplified API converts any PNG into PNG_FORMAT_GRAY / _RGB.
@@ -41,9 +44,10 @@ InflateResult zlib_inflate(const uint8_t* src, size_t n, std::vector<uint8_t>* o
 uint8_t* png_decode(const uint8_t* data, size_t n, int channels, int* w, int* h);
 
 // ------------------------------------------------------------------ JPEG
-// (yst_jpeg.cpp) baseline, extended-Huffman and progressive 8-bit JPEGs,
-// decoded as libjpeg-turbo decodes them with out_color_space JCS_GRAYSCALE
-// (channels 1) or JCS_RGB (channels 3) and scale_num/8 (1..8). ``scale_num``
+// (yst_jpeg.cpp) 8-bit sequential and progressive JPEGs, Huffman or
+// arithmetic coded, decoded as libjpeg-turbo decodes them with
+// out_color_space JCS_GRAYSCALE (channels 1) or JCS_RGB (channels 3) and
+// scale_num/8 (1..8), block smoothing included. ``scale_num``
 // is called once with the image's dimensions and returns the numerator.
 // Returns a malloc'd buffer of the decoded (scaled) size in *w, *h and the
 // image's own size in *ow, *oh; nullptr on error.

@@ -124,21 +124,6 @@ const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5, 
                                 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
 const uint8_t kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
 
-uint32_t adler32(const uint8_t* d, size_t n) {
-  uint32_t a = 1, b = 0;
-  while (n) {
-    size_t k = n < 5552 ? n : 5552;  // the largest run before b can overflow
-    n -= k;
-    while (k--) {
-      a += *d++;
-      b += a;
-    }
-    a %= 65521;
-    b %= 65521;
-  }
-  return (b << 16) | a;
-}
-
 // Inflate one block's codes. 0 = end of block, else an InflateStatus.
 int inflate_codes(BitReader* br, const Huffman* lit, const Huffman* dist,
                   std::vector<uint8_t>* out, size_t limit) {
@@ -226,6 +211,21 @@ void fixed_tables(Huffman* lit, Huffman* dist) {
 }
 
 }  // namespace
+
+uint32_t adler32(const uint8_t* d, size_t n) {
+  uint32_t a = 1, b = 0;
+  while (n) {
+    size_t k = n < 5552 ? n : 5552;  // the largest run before b can overflow
+    n -= k;
+    while (k--) {
+      a += *d++;
+      b += a;
+    }
+    a %= 65521;
+    b %= 65521;
+  }
+  return (b << 16) | a;
+}
 
 InflateResult zlib_inflate(const uint8_t* src, size_t n, std::vector<uint8_t>* out,
                            size_t limit) {

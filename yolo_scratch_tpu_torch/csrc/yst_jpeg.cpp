@@ -1,31 +1,37 @@
-// yst_jpeg: JPEG decode as libjpeg-turbo's jpeg_read_scanlines gives it with
-// out_color_space JCS_GRAYSCALE or JCS_RGB, scale_num/8 (num 1..8), the
-// default islow IDCT and fancy upsampling, and nothing else of libjpeg.
+// yst_jpeg: JPEG decode as libjpeg-turbo 2.1's jpeg_read_scanlines gives it
+// with out_color_space JCS_GRAYSCALE or JCS_RGB, scale_num/8 (num 1..8), the
+// default islow IDCT, fancy upsampling and block smoothing, and nothing else
+// of libjpeg.
 //
-// Supported: baseline and extended-Huffman sequential (SOF0/SOF1) and
-// progressive (SOF2) 8-bit JPEGs of 1 or 3 components, any sampling factors
+// Supported: 8-bit JPEGs of 1 or 3 components, sequential or progressive,
+// Huffman-coded (SOF0, SOF1, SOF2) or arithmetic-coded (SOF9, SOF10, with
+// the DAC conditioning or libjpeg's defaults), any sampling factors
 // libjpeg-turbo upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), restart
 // intervals, the JFIF / Adobe colour markers, libjpeg-turbo's default
-// Huffman tables for slots 0 and 1. Arithmetic-coded, 12-bit, lossless and
-// hierarchical files fail with nullptr.
+// Huffman tables for slots 0 and 1 of sequential files. 12-bit, lossless
+// (SOF3, SOF11) and hierarchical files fail with nullptr.
 //
 // The whole file is entropy-decoded into per-component coefficient arrays
 // first (as libjpeg does for multi-scan files), then each component is
 // inverse-transformed at its scaled size, upsampled and colour-converted.
 // Each stage is libjpeg-turbo's integer arithmetic:
+//   * entropy decoding: jdhuff.c / jdphuff.c, and jdarith.c's QM decoder
+//     with the probability estimation of jaritab.c;
+//   * block smoothing (jdcoefct.c's 5x5 form): a progressive file whose
+//     coefficients 1..9 are not all fully refined when the data ends has
+//     them estimated from the neighbouring blocks' DC values;
 //   * the IDCTs: jpeg_idct_islow at 8x8 and jidctred.c's 2x2 and 4x4 as
-//     its SSE2/AVX2 code computes them (16-bit lanes; equal to the C code on
-//     valid data), the 1x1, and jidctint.c's 3x3, 5x5, 6x6, 7x7, 10x10,
-//     12x12 and 14x14 (a scaled decode runs the chroma IDCT at twice the
-//     luma's size where the sampling allows, as jdmaster.c chooses per
-//     component);
+//     its SSE2/AVX2 code computes them (16-bit lanes and 32-bit sums; equal
+//     to the C code on valid data), the 1x1, and jidctint.c's 3x3, 5x5, 6x6,
+//     7x7, 10x10, 12x12 and 14x14 (a scaled decode runs the chroma IDCT at
+//     twice the luma's size where the sampling allows, as jdmaster.c
+//     chooses per component);
 //   * upsampling: h2v1, h1v2 and h2v2 "fancy" triangle filters with their
 //     rounding biases (off at 1/8 scale), box replication otherwise;
 //   * colour: jdcolor.c's YCbCr->RGB tables and RGB->Y weights.
-// A file that ends early decodes as libjpeg decodes it: the rest of the
-// entropy-coded data reads as zero bits, and every MCU after the one that
-// ran out is left at zero (mid-gray). Progressive files that end early are
-// not block-smoothed as libjpeg smooths them.
+// A file that ends early decodes as libjpeg decodes it: past the data the
+// Huffman decoder reads zero bits and leaves every later MCU at zero
+// (mid-gray), the arithmetic decoder reads zero bytes to the end.
 
 #include <cstdlib>
 #include <cstring>
@@ -41,6 +47,29 @@ const int kNatural[80] = {
     40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
     29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// The QM coder's probability estimation (ITU T.81 Table D.2) in libjpeg's
+// packing, jaritab.c: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS. Entry 113 is the fixed estimate (Qe 0x5a1d, no adaptation)
+// that signs and refinement bits are coded with.
+const uint32_t kQeTable[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
 
 // ------------------------------------------------------------------ tables
 
@@ -168,9 +197,27 @@ void idct_8x8(const int16_t* in, const int16_t* q, uint8_t* out, size_t stride,
   }
 }
 
-// jidctred.c, in the form libjpeg-turbo's SSE2 code computes it (sat8)
+inline L w32(L v) { return (L)(int32_t)(uint32_t)v; }  // a 32-bit lane's wraparound
+
+// jidctred.c's 4x4 as libjpeg-turbo's SSE2 code computes it: the odd terms
+// are two pmaddwd pairs summed in 32 bits, and every sum and rounding wraps
+// at 32 bits; pass 1 saturates to 16 bits, pass 2 to a sample (sat8).
 void idct_4x4(const int16_t* in, const int16_t* q, uint8_t* out, size_t stride,
               const uint8_t*) {
+  // tmp2 and tmp0 of jidctred.c from inputs 1, 3, 5, 7
+  auto odd = [](L x1, L x3, L x5, L x7, L* t2, L* t0) {
+    *t2 = w32((x1 * fix(2.562915447) + x3 * fix(0.899976223)) +
+              (x5 * -fix(0.601344887) + x7 * -fix(0.509795579)));
+    *t0 = w32((x1 * fix(1.061594337) + x3 * -fix(2.172734803)) +
+              (x5 * fix(1.451774981) + x7 * -fix(0.211164243)));
+  };
+  auto put = [](L tmp10, L tmp12, L t2, L t0, int s, L* o) {
+    const L r = (L)1 << (s - 1);
+    o[0] = w32(w32(tmp10 + t2) + r) >> s;
+    o[3] = w32(w32(tmp10 - t2) + r) >> s;
+    o[1] = w32(w32(tmp12 + t0) + r) >> s;
+    o[2] = w32(w32(tmp12 - t0) + r) >> s;
+  };
   int ws[32];
   bool ac = false;
   for (int i = 8; i < 64; ++i) ac = ac || (in[i] && (i >> 3) != 4);
@@ -184,82 +231,54 @@ void idct_4x4(const int16_t* in, const int16_t* q, uint8_t* out, size_t stride,
       for (int k = 0; k < 4; ++k) w[8 * k] = dc;
       continue;
     }
-    L tmp0 = dq16(p, qp, 0) * (1 << (CB + 1));
-    L z2 = dq16(p, qp, 16), z3 = dq16(p, qp, 48);
-    L tmp2 = z2 * fix(1.847759065) + z3 * -fix(0.765366865);
-    L tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    L z1 = dq16(p, qp, 56);
-    z2 = dq16(p, qp, 40);
-    z3 = dq16(p, qp, 24);
-    L z4 = dq16(p, qp, 8);
-    tmp0 = z1 * -fix(0.211164243) + z2 * fix(1.451774981) + z3 * -fix(2.172734803) +
-           z4 * fix(1.061594337);
-    tmp2 = z1 * -fix(0.509795579) + z2 * -fix(0.601344887) + z3 * fix(0.899976223) +
-           z4 * fix(2.562915447);
-    const int s = CB - P1 + 1;
-    w[0] = sat16(descale(tmp10 + tmp2, s));
-    w[24] = sat16(descale(tmp10 - tmp2, s));
-    w[8] = sat16(descale(tmp12 + tmp0, s));
-    w[16] = sat16(descale(tmp12 - tmp0, s));
+    const L tmp0 = dq16(p, qp, 0) * (1 << (CB + 1));
+    const L even = dq16(p, qp, 16) * fix(1.847759065) + dq16(p, qp, 48) * -fix(0.765366865);
+    L t2, t0, o[4];
+    odd(dq16(p, qp, 8), dq16(p, qp, 24), dq16(p, qp, 40), dq16(p, qp, 56), &t2, &t0);
+    put(w32(tmp0 + even), w32(tmp0 - even), t2, t0, CB - P1 + 1, o);
+    for (int k = 0; k < 4; ++k) w[8 * k] = sat16(o[k]);
   }
   for (int r = 0; r < 4; ++r) {
     const int* w = ws + 8 * r;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
-      std::memset(o, sat8(descale(w[0], P1 + 3)), 4);
-      continue;
-    }
-    L tmp0 = (L)w[0] * (1 << (CB + 1));
-    L tmp2 = w[2] * fix(1.847759065) + w[6] * -fix(0.765366865);
-    L tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    L z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
-    tmp0 = z1 * -fix(0.211164243) + z2 * fix(1.451774981) + z3 * -fix(2.172734803) +
-           z4 * fix(1.061594337);
-    tmp2 = z1 * -fix(0.509795579) + z2 * -fix(0.601344887) + z3 * fix(0.899976223) +
-           z4 * fix(2.562915447);
-    const int s = CB + P1 + 3 + 1;
-    o[0] = sat8(descale(tmp10 + tmp2, s));
-    o[3] = sat8(descale(tmp10 - tmp2, s));
-    o[1] = sat8(descale(tmp12 + tmp0, s));
-    o[2] = sat8(descale(tmp12 - tmp0, s));
+    uint8_t* o8 = out + r * stride;
+    const L tmp0 = (L)w[0] * (1 << (CB + 1));
+    const L even = w[2] * fix(1.847759065) + w[6] * -fix(0.765366865);
+    L t2, t0, o[4];
+    odd(w[1], w[3], w[5], w[7], &t2, &t0);
+    put(w32(tmp0 + even), w32(tmp0 - even), t2, t0, CB + P1 + 3 + 1, o);
+    for (int k = 0; k < 4; ++k) o8[k] = sat8(o[k]);
   }
 }
 
+// jidctred.c's 2x2 as libjpeg-turbo's SSE2 code computes it: the odd terms
+// are pmaddwd pairs summed in 32 bits (wrapping), column 0's pass-1 output
+// stays 32 bits wide (and wraps when pass 2 shifts it) while columns 1, 3,
+// 5 and 7 saturate to 16 bits, and there is no all-zero shortcut.
 void idct_2x2(const int16_t* in, const int16_t* q, uint8_t* out, size_t stride,
               const uint8_t*) {
-  int ws[16];
-  bool ac = false;
-  for (int i = 8; i < 64; ++i) ac = ac || (in[i] && ((i >> 3) & 1));
+  auto odd = [](L a1, L a3, L a5, L a7) {
+    return w32((a1 * fix(3.624509785) - a3 * fix(1.272758580)) +
+               (a5 * fix(0.850430095) - a7 * fix(0.720959822)));
+  };
+  L ws[2][8];
   for (int c = 0; c < 8; ++c) {
     if (c == 2 || c == 4 || c == 6) continue;
     const int16_t* p = in + c;
     const int16_t* qp = q + c;
-    int* w = ws + c;
-    if (!ac) {
-      int dc = (int16_t)(dq16(p, qp, 0) * (1 << P1));
-      w[0] = w[8] = dc;
-      continue;
-    }
-    L tmp10 = dq16(p, qp, 0) * (1 << (CB + 2));
-    L tmp0 = dq16(p, qp, 56) * -fix(0.720959822) + dq16(p, qp, 40) * fix(0.850430095) +
-             dq16(p, qp, 24) * -fix(1.272758580) + dq16(p, qp, 8) * fix(3.624509785);
+    const L t = odd(dq16(p, qp, 8), dq16(p, qp, 24), dq16(p, qp, 40), dq16(p, qp, 56));
+    const L dc = dq16(p, qp, 0) * (1 << (CB + 2));
     const int s = CB - P1 + 2;
-    w[0] = sat16(descale(tmp10 + tmp0, s));
-    w[8] = sat16(descale(tmp10 - tmp0, s));
+    L a = w32(w32(dc + t) + (1 << (s - 1))) >> s, b = w32(w32(dc - t) + (1 << (s - 1))) >> s;
+    ws[0][c] = c ? sat16(a) : a;
+    ws[1][c] = c ? sat16(b) : b;
   }
   for (int r = 0; r < 2; ++r) {
-    const int* w = ws + 8 * r;
+    const L* w = ws[r];
     uint8_t* o = out + r * stride;
-    if (!w[1] && !w[3] && !w[5] && !w[7]) {
-      o[0] = o[1] = sat8(descale(w[0], P1 + 3));
-      continue;
-    }
-    L tmp10 = (L)w[0] * (1 << (CB + 2));
-    L tmp0 = w[7] * -fix(0.720959822) + w[5] * fix(0.850430095) +
-             w[3] * -fix(1.272758580) + w[1] * fix(3.624509785);
+    const L t = odd(w[1], w[3], w[5], w[7]), t10 = w32(w[0] * (1 << (CB + 2)));
     const int s = CB + P1 + 3 + 2;
-    o[0] = sat8(descale(tmp10 + tmp0, s));
-    o[1] = sat8(descale(tmp10 - tmp0, s));
+    o[0] = sat8(w32(w32(t10 + t) + (1 << (s - 1))) >> s);
+    o[1] = sat8(w32(w32(t10 - t) + (1 << (s - 1))) >> s);
   }
 }
 
@@ -704,10 +723,13 @@ struct Component {
   int bw_pad, bh_pad;  // blocks stored: whole MCUs
   std::vector<int16_t> coef;
   int16_t q[64];
+  uint16_t qv[64];  // the same table unwrapped (block smoothing reads it)
   bool latched = false;
   int dc_tbl = 0, ac_tbl = 0;
   int dc_pred = 0;
+  int dc_context = 0;  // arithmetic coding's DC conditioning (0, 4, 8, 12, 16)
   int coef_bits[64];
+  int prev_bits[10];  // coef_bits[0..9] before the component's latest scan
 };
 
 struct Fail {};  // thrown on any error libjpeg reports with error_exit
@@ -718,7 +740,7 @@ struct Decoder {
   size_t pos = 0;  // bytes past n read as libjpeg's fake EOI: FF D9 FF D9 ...
   int marker = 0;  // a marker read but not yet processed
 
-  bool saw_soi = false, saw_sof = false, progressive = false;
+  bool saw_soi = false, saw_sof = false, progressive = false, arith = false;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   int W = 0, H = 0, ncomp = 0, max_h = 1, max_v = 1;
@@ -729,6 +751,9 @@ struct Decoder {
   int restart_interval = 0;
   int scans = 0;
   bool multi_scan = false;
+  // arithmetic-coding conditioning by table (DAC; libjpeg's defaults)
+  uint8_t dac_L[16], dac_U[16], dac_K[16];
+  int last_good_row = 0;  // jdcoefct.c's last_good_iMCU_row
 
   // the current scan
   int ns = 0;
@@ -739,6 +764,18 @@ struct Decoder {
   uint64_t buf = 0;
   int cnt = 0;
   bool insufficient = false;
+  // the arithmetic decoder (jdarith.c): C and A registers, bit counter
+  // (-16 before the first two bytes, -1 after a decoding error), statistics
+  int64_t ar_c = 0, ar_a = 0;
+  int ar_ct = 0;
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+
+  Decoder() {
+    std::memset(dac_L, 0, sizeof(dac_L));
+    std::memset(dac_U, 1, sizeof(dac_U));
+    std::memset(dac_K, 5, sizeof(dac_K));
+  }
 
   int byte_at(size_t i) const { return i < n ? d[i] : ((i - n) & 1) ? 0xD9 : 0xFF; }
   int u8() { return byte_at(pos++); }
@@ -751,10 +788,7 @@ struct Decoder {
   void next_marker() {
     for (;;) {
       int c = u8();
-      while (c != 0xFF) {
-        if (pos > n + 4) throw Fail();  // cannot happen: the fake stream is FF D9
-        c = u8();
-      }
+      while (c != 0xFF) c = u8();  // ends: past the data every other byte is FF
       do c = u8();
       while (c == 0xFF);
       if (c != 0) {
@@ -812,15 +846,20 @@ struct Decoder {
     if (len != 0) throw Fail();
   }
 
-  // arithmetic-coding conditioning: validated as libjpeg's get_dac does,
-  // and otherwise unused (the port decodes no arithmetic-coded scan)
+  // arithmetic-coding conditioning: L and U of a DC table, Kx of an AC one
   void get_dac() {
     long len = u16() - 2;
     while (len > 0) {
       int index = u8(), val = u8();
       len -= 2;
       if (index >= 32) throw Fail();
-      if (index < 16 && (val & 15) > (val >> 4)) throw Fail();
+      if (index >= 16) {
+        dac_K[index - 16] = (uint8_t)val;
+      } else {
+        dac_L[index] = (uint8_t)(val & 15);
+        dac_U[index] = (uint8_t)(val >> 4);
+        if (dac_L[index] > dac_U[index]) throw Fail();
+      }
     }
     if (len != 0) throw Fail();
   }
@@ -847,7 +886,7 @@ struct Decoder {
     if (len > 0) pos += (size_t)len;
   }
 
-  void get_sof(bool prog) {
+  void get_sof(bool prog, bool ar) {
     if (saw_sof) throw Fail();
     int len = u16();
     int precision = u8();
@@ -870,6 +909,7 @@ struct Decoder {
       c.tq = u8();
     }
     progressive = prog;
+    arith = ar;
     saw_sof = true;
   }
 
@@ -919,12 +959,10 @@ struct Decoder {
       if (m == 0xD8) {
         if (saw_soi) throw Fail();
         saw_soi = true;
-      } else if (m == 0xC0 || m == 0xC1) {
-        get_sof(false);
-      } else if (m == 0xC2) {
-        get_sof(true);
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+        get_sof(m == 0xC2 || m == 0xCA, m >= 0xC9);
       } else if (m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-        throw Fail();  // lossless, hierarchical, arithmetic: not supported
+        throw Fail();  // lossless and hierarchical: not supported
       } else if (m == 0xDA) {
         get_sos();
         return true;
@@ -1052,9 +1090,7 @@ struct Decoder {
   static int extend(int r, int s) { return r < (1 << (s - 1)) ? r + (int)(~0u << s) + 1 : r; }
 
   // libjpeg's read_restart_marker and jpeg_resync_to_restart
-  void restart() {
-    cnt = 0;
-    buf = 0;
+  void read_restart_marker() {
     if (!marker) next_marker();
     if (marker == 0xD0 + next_restart) {
       marker = 0;
@@ -1081,10 +1117,207 @@ struct Decoder {
       }
     }
     next_restart = (next_restart + 1) & 7;
+  }
+
+  void restart() {
+    restarts_to_go = restart_interval;
+    if (arith) {  // jdarith.c's process_restart
+      read_restart_marker();
+      reset_arith();
+      return;
+    }
+    cnt = 0;
+    buf = 0;
+    read_restart_marker();
     for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
     eobrun = 0;
-    restarts_to_go = restart_interval;
     if (!marker) insufficient = false;
+  }
+
+  // the statistics this scan codes with, the DC predictions and the C and A
+  // registers, as each arithmetic-coded scan and restart interval begins
+  void reset_arith() {
+    for (int i = 0; i < ns; ++i) {
+      Component* c = sc[i];
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        std::memset(dc_stats[c->dc_tbl], 0, sizeof(dc_stats[0]));
+        c->dc_pred = 0;
+        c->dc_context = 0;
+      }
+      if (!progressive || Ss) std::memset(ac_stats[c->ac_tbl], 0, sizeof(ac_stats[0]));
+    }
+    ar_c = 0;
+    ar_a = 0;
+    ar_ct = -16;  // the first decision reads two bytes into C
+  }
+
+  // ------------------------------------------------- arithmetic decoding
+  // jdarith.c's arith_decode: one binary decision in the context *st. Past
+  // a marker (the end of the data included) the coder reads zero bytes.
+  int arith_decode(uint8_t* st) {
+    while (ar_a < 0x8000) {
+      if (--ar_ct < 0) {
+        int data = 0;
+        if (!marker) {
+          data = u8();
+          if (data == 0xFF) {
+            do data = u8();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        ar_c = (ar_c << 8) | data;
+        if ((ar_ct += 8) < 0 && ++ar_ct == 0) ar_a = 0x8000;
+      }
+      ar_a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kQeTable[sv & 0x7F];
+    const uint8_t nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    int64_t temp = ar_a - qe;
+    ar_a = temp;
+    temp <<= ar_ct;
+    if (ar_c >= temp) {
+      ar_c -= temp;
+      if (ar_a < qe) {
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ar_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a < 0x8000) {
+      if (ar_a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // A DC difference into c->dc_pred (mod 2^16), conditioned on the last
+  // difference's category. false on a magnitude overflow (the scan's data
+  // is then ignored up to the next restart).
+  bool arith_dc(Component* c) {
+    const int tbl = c->dc_tbl;
+    uint8_t* st = dc_stats[tbl] + c->dc_context;
+    if (arith_decode(st) == 0) {
+      c->dc_context = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < (int)((1L << dac_L[tbl]) >> 1))
+      c->dc_context = 0;
+    else if (m > (int)((1L << dac_U[tbl]) >> 1))
+      c->dc_context = 12 + sign * 4;
+    else
+      c->dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c->dc_pred = (c->dc_pred + v) & 0xffff;
+    return true;
+  }
+
+  // AC coefficients k in [lo, hi] (zigzag), each stored << al; false on a
+  // spectral or magnitude overflow
+  bool arith_ac(Component* c, int16_t* blk, int lo, int hi, int al) {
+    const int tbl = c->ac_tbl;
+    for (int k = lo; k <= hi; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // end of block
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > hi) return false;
+      }
+      const int sign = arith_decode(&fixed_bin);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= dac_K[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)((unsigned)v << al);
+    }
+    return true;
+  }
+
+  // a successive-approximation AC refinement (Figure G.10 in the QM form)
+  bool arith_ac_refine(Component* c, int16_t* blk) {
+    const int tbl = c->ac_tbl;
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    int kex = Se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (arith_decode(st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *coef = (int16_t)(arith_decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) return false;
+      }
+    }
+    return true;
+  }
+
+  // one block of an arithmetic-coded scan; false ends the MCU (an error)
+  bool arith_block(Component* c, int16_t* blk) {
+    if (!progressive) {
+      if (!arith_dc(c)) return false;
+      blk[0] = (int16_t)c->dc_pred;
+      return arith_ac(c, blk, 1, 63, 0);
+    }
+    if (Ss == 0 && Ah == 0) {
+      if (!arith_dc(c)) return false;
+      blk[0] = (int16_t)((unsigned)c->dc_pred << Al);
+      return true;
+    }
+    if (Ss == 0) {
+      if (arith_decode(&fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << Al));
+      return true;
+    }
+    if (Ah == 0) return arith_ac(c, blk, Ss, Se, Al);
+    return arith_ac_refine(c, blk);
   }
 
   int16_t* block(Component* c, int br, int bc) {
@@ -1186,7 +1419,7 @@ struct Decoder {
 
   void start_scan() {
     if (scans == 1) {
-      // libjpeg's initial_setup, then the default tables of jstdhuff.c
+      // libjpeg's initial_setup
       if (W > 65500 || H > 65500) throw Fail();
       for (int i = 0; i < ncomp; ++i) {
         Component& c = comp[i];
@@ -1208,7 +1441,7 @@ struct Decoder {
       if (total > ((size_t)1 << 24)) throw Fail();  // 2 GiB of coefficients
       for (int i = 0; i < ncomp; ++i)
         comp[i].coef.assign((size_t)comp[i].bw_pad * comp[i].bh_pad * 64, 0);
-      std_tables();
+      if (!progressive) std_tables();  // jdhuff.c loads them; jdphuff.c does not
       multi_scan = progressive || ns < ncomp;
     } else if (!multi_scan) {
       throw Fail();  // a second scan in a single-scan file: EOI expected
@@ -1217,7 +1450,7 @@ struct Decoder {
       Component* c = sc[i];
       if (c->latched) continue;
       if (c->tq >= 4 || !qt_defined[c->tq]) throw Fail();
-      for (int k = 0; k < 64; ++k) c->q[k] = (int16_t)qt[c->tq][k];
+      for (int k = 0; k < 64; ++k) c->q[k] = (int16_t)(c->qv[k] = qt[c->tq][k]);
       c->latched = true;
     }
     if (progressive) {
@@ -1227,8 +1460,14 @@ struct Decoder {
       if (Al > 13) bad = true;
       if (bad) throw Fail();
       for (int i = 0; i < ns; ++i) {
+        // the progression status block smoothing reads: coefficients 0..9
+        // as they stood before this scan, then this scan's Al
+        for (int k = Ss < 1 ? Ss : 1; k <= 9; ++k)
+          sc[i]->prev_bits[k] = scans > 1 ? sc[i]->coef_bits[k] : 0;
         for (int k = Ss; k <= Se; ++k) sc[i]->coef_bits[k] = Al;
-        if (dc && Ah == 0) {
+        if (arith) {
+          continue;
+        } else if (dc && Ah == 0) {
           if (sc[i]->dc_tbl >= 4) throw Fail();
           build_table(dc_spec[sc[i]->dc_tbl], true, &dct[sc[i]->dc_tbl]);
         } else if (!dc) {
@@ -1236,7 +1475,7 @@ struct Decoder {
           build_table(ac_spec[sc[i]->ac_tbl], false, &act[sc[i]->ac_tbl]);
         }
       }
-    } else {
+    } else if (!arith) {
       for (int i = 0; i < ns; ++i) {
         if (sc[i]->dc_tbl >= 4 || sc[i]->ac_tbl >= 4) throw Fail();
         build_table(dc_spec[sc[i]->dc_tbl], true, &dct[sc[i]->dc_tbl]);
@@ -1254,6 +1493,7 @@ struct Decoder {
     buf = 0;
     cnt = 0;
     insufficient = false;
+    if (arith) reset_arith();
   }
 
   void std_tables() {
@@ -1317,17 +1557,22 @@ struct Decoder {
     const bool dc = Ss == 0;
     for (int my = 0; my < mcuy; ++my)
       for (int mx = 0; mx < mcux; ++mx) {
+        // jdcoefct.c: the last iMCU row whose data began before the data ran out
+        if (!insufficient) last_good_row = ns == 1 ? my / sc[0]->v : my;
         if (restart_interval) {
           if (restarts_to_go == 0) restart();
         }
-        if (!insufficient || (progressive && dc && Ah != 0)) {
-          for (int i = 0; i < ns; ++i) {
+        if (arith ? ar_ct != -1 : !insufficient || (progressive && dc && Ah != 0)) {
+          bool ok = true;
+          for (int i = 0; i < ns && ok; ++i) {
             Component* c = sc[i];
             int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
-            for (int y = 0; y < bh; ++y)
-              for (int x = 0; x < bwn; ++x) {
+            for (int y = 0; y < bh && ok; ++y)
+              for (int x = 0; x < bwn && ok; ++x) {
                 int16_t* blk = ns == 1 ? block(c, my, mx) : block(c, my * c->v + y, mx * c->h + x);
-                if (!progressive)
+                if (arith)
+                  ok = arith_block(c, blk);
+                else if (!progressive)
                   decode_block_seq(c, blk);
                 else if (dc && Ah == 0)
                   decode_dc_first(c, blk);
@@ -1339,9 +1584,119 @@ struct Decoder {
                   decode_ac_refine(c, blk);
               }
           }
+          if (!ok) ar_ct = -1;
         }
         if (restart_interval) restarts_to_go--;
       }
+  }
+
+  // ------------------------------------------------------ block smoothing
+  // jdcoefct.c's smoothing_ok: a progressive image whose DC is at least
+  // partly known in every component, and some coefficient 1..9 (zigzag) of
+  // some component not fully refined, is block-smoothed on output.
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int ci = 0; ci < ncomp; ++ci) {
+      const Component& c = comp[ci];
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.qv[kPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful = useful || c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1's 5x5 form): each
+  // block's coefficients 1..9 that are still zero and not known exact are
+  // estimated from the DC values of the 5x5 blocks around it, and where no
+  // AC data arrived at all the DC too is interpolated; then the IDCT. The
+  // neighbourhood is clamped at the image's edges as libjpeg clamps it,
+  // row indices and the sliding column registers included.
+  void idct_smoothed(Component& c, IdctFn idct, int ss, uint8_t* plane, size_t pw,
+                     const uint8_t* lim) {
+    const int total = (H + 8 * max_v - 1) / (8 * max_v);
+    const int last = c.bw - 1;
+    int prev_latch[10];
+    for (int k = 1; k < 10; ++k) prev_latch[k] = scans > 1 ? c.prev_bits[k] : -1;
+    int16_t ws[64];
+    for (int by = 0; by < c.bh; ++by) {
+      const int row = by / c.v, block_row = by % c.v, last_row = total - 1;
+      int rows = c.v;
+      if (row == last_row && c.bh % c.v) rows = c.bh % c.v;
+      int rr[5];  // the block rows two above to two below, as libjpeg picks them
+      rr[2] = by;
+      rr[1] = block_row > 0 || row > 0 ? by - 1 : by;
+      rr[0] = block_row > 1 || row > 1 ? by - 2 : rr[1];
+      rr[3] = block_row < rows - 1 || row < last_row ? by + 1 : by;
+      rr[4] = block_row < rows - 2 || row + 1 < last_row ? by + 2 : rr[3];
+      // rows past the last good iMCU row take the previous scan's status
+      const int* bits = row > last_good_row ? prev_latch : c.coef_bits;
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+      const int64_t Q00 = c.qv[0];
+      int dc[5][5];  // [row][column], the block itself at [2][2]
+      for (int r = 0; r < 5; ++r)
+        for (int k = 0; k < 5; ++k) dc[r][k] = block(&c, rr[r], 0)[0];
+#define D(n) ((int64_t)dc[((n)-1) / 5][((n)-1) % 5])
+      for (int bx = 0; bx <= last; ++bx) {
+        std::memcpy(ws, block(&c, by, bx), sizeof(ws));
+        if (bx == 0 && bx < last)
+          for (int r = 0; r < 5; ++r) dc[r][3] = block(&c, rr[r], 1)[0];
+        if (bx + 1 < last)
+          for (int r = 0; r < 5; ++r) dc[r][4] = block(&c, rr[r], bx + 2)[0];
+        // coefficient at zigzag index zz (natural nat) from the sum ``sum``
+        auto estimate = [&](int zz, int nat, int64_t sum) {
+          const int al = bits[zz];
+          if (al == 0 || ws[nat] != 0) return;
+          const int64_t q = c.qv[nat], num = Q00 * sum;
+          int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          ws[nat] = (int16_t)(num >= 0 ? pred : -pred);
+        };
+        if (change_dc) {
+          estimate(1, 1, -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) +
+                             3 * D(10) - 3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) -
+                             3 * D(16) + 13 * D(17) - 13 * D(19) + 3 * D(20) - D(21) - D(22) +
+                             D(24) + D(25));
+          estimate(2, 8, -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) +
+                             38 * D(8) + 13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) -
+                             13 * D(19) + D(20) + D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) +
+                             D(25));
+          estimate(3, 16, D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) -
+                              5 * D(14) + 2 * D(17) + 7 * D(18) + 2 * D(19) + D(23));
+          estimate(4, 9, -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) -
+                             D(25));
+          estimate(5, 2, 2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) +
+                             7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19));
+          estimate(6, 3, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+          estimate(7, 10, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+          estimate(8, 17, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+          estimate(9, 24, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+          const int64_t num =
+              Q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) - 6 * D(6) +
+                     6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) +
+                     152 * D(13) + 42 * D(14) - 8 * D(15) - 6 * D(16) + 6 * D(17) +
+                     42 * D(18) + 6 * D(19) - 6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) -
+                     6 * D(24) - 2 * D(25));
+          const int pred = (int)(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+          ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+        } else {
+          estimate(1, 1, -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+          estimate(2, 8, -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+          estimate(3, 16, -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+          estimate(4, 9, D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) -
+                             D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9));
+          estimate(5, 2, -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+        }
+        idct(ws, c.q, plane + (size_t)by * ss * pw + (size_t)bx * ss, pw, lim);
+        for (int r = 0; r < 5; ++r)
+          for (int k = 0; k < 4; ++k) dc[r][k] = dc[r][k + 1];
+      }
+#undef D
+    }
   }
 
   // ----------------------------------------------------------- output
@@ -1363,6 +1718,7 @@ struct Decoder {
       rgb = !ycc;
     }
     int nneed = (ncomp == 1 || (ycc && channels == 1)) ? 1 : 3;
+    const bool smooth = smoothing_ok();
     std::vector<uint8_t> full[3];
     for (int ci = 0; ci < nneed; ++ci) {
       Component& c = comp[ci];
@@ -1378,10 +1734,13 @@ struct Decoder {
       const int ds_h = (int)(((int64_t)H * c.v * ss + 8 * max_v - 1) / (8 * max_v));
       const size_t pw = (size_t)c.bw * ss, ph = (size_t)c.bh * ss;
       std::vector<uint8_t> plane(pw * ph);
-      for (int by = 0; by < c.bh; ++by)
-        for (int bx = 0; bx < c.bw; ++bx)
-          idct(block(&c, by, bx), c.q, plane.data() + (size_t)by * ss * pw + (size_t)bx * ss, pw,
-               tb.idct_limit);
+      if (smooth)
+        idct_smoothed(c, idct, ss, plane.data(), pw, tb.idct_limit);
+      else
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx)
+            idct(block(&c, by, bx), c.q, plane.data() + (size_t)by * ss * pw + (size_t)bx * ss,
+                 pw, tb.idct_limit);
       // jdsample.c
       const int h_in = c.h * ss / scale, v_in = c.v * ss / scale;
       const bool fancy = scale > 1;

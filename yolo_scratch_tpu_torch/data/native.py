@@ -113,7 +113,14 @@ def decode_file(path: str, channels: int = 1) -> np.ndarray:
 
 def decode_bytes(data: bytes, channels: int = 1, scale_num: int = 8) -> np.ndarray:
     """Decode PNG/JPEG bytes -> (h, w, channels) uint8; a JPEG at
-    ``scale_num``/8 of its size (libjpeg's scaled IDCT), a PNG at full size."""
+    ``scale_num``/8 of its size (libjpeg's scaled IDCT), a PNG at full size.
+
+    Every file the JAX tier's libjpeg-turbo and libpng decode, with their
+    bytes: Huffman or arithmetic-coded JPEGs, sequential or progressive
+    (block-smoothed where a progressive file ends early), and PNGs of any
+    type with their gAMA, sRGB, cHRM, iCCP and sBIT chunks applied as
+    libpng's simplified API applies them. A file they refuse raises
+    ``IOError`` here too."""
     lib = load()
     w, h = ctypes.c_int(), ctypes.c_int()
     ptr = lib.yst_decode_memory(bytes(data), len(data), channels, scale_num, ctypes.byref(w),
