@@ -110,9 +110,15 @@ Phases (any failure raises and exits non-zero):
    images whose selection differs from the exact one. (c) the tiled sweep
    (``nms_impl="tiled"``, PyTorch ops) on phase 3's seeded boxes at B=32,
    N=512 and 2048: keep masks equal to kernel #1's and to the CPU tiled
-   sweep's, its device ms beside kernel #1's; at N=8400, past kernel #1's
-   4096 boxes (the kernel must refuse), equal to the plain sweep and, on
-   one image, the pairwise sweep, its ms beside the pairwise sweep's. (d) ``dga_nms_device`` card
+   sweep's, its device ms beside kernel #1's; kernels #1 and #2 past the
+   register reduce's 4096 boxes (``LONG_SWEEPS``: N=8400 at B=32 and at
+   B=128, two chunks of scratch; 21,504 at B=32; 33,600 at B=1), each
+   equal to the tiled sweep (and at N=8400, B=32 to the plain one), with
+   its device ms beside the tiled sweep's, its bound and its scratch, and
+   at N=8400 the pairwise sweep on one image; the Predictor at ``--topk
+   8400``, conf 0, B=32 (crater), equal to the plain sweep, and
+   ``export.main --topk 8400``'s artifact equal to it, each launching
+   kernel #1 once. (d) ``dga_nms_device`` card
    against CPU: the dGA matrix within 1e-6, keep sets exact. (e) the legacy
    model at width_mult 1.15, 640, f32 with TF32 off, deterministic: the
    forward, ``legacy_yolo_loss`` plus the crater losses (the angular
@@ -2080,7 +2086,16 @@ BLOCKED_KB = 32
 LEGACY_BATCH, LEGACY_CPU_IMAGES = 16, 2
 LEGACY_WIDTH = 1.15
 DGA_TOL = 1e-6
-TILED_LONG_N = 8400  # every anchor of a 640 image: past kernel #1's 4096
+TILED_LONG_N = 8400  # every anchor of a 640 image
+# kernels #1 and #2 past the register reduce's 4096 boxes, (wrapper, B, N,
+# against the plain sweep too): every anchor of a 640 image at the
+# Predictor's B and at the headline's (its mask scratch past the cap: two
+# chunks), of a 1024 image, and of a 1280 image at B=1. The tiled sweep,
+# exact wherever the plain one is, holds the cases whose plain sweep would
+# take 3-12 s apiece here (test_torch_kernels_gpu.py holds those to it)
+LONG_SWEEPS = (("nms_sweep_batched", BATCH, TILED_LONG_N, True),
+               ("nms_sweep_batched", HEADLINE_B, TILED_LONG_N, False),
+               ("nms_sweep_batched", BATCH, 21504, False), ("nms_sweep", 1, 33600, False))
 
 
 def ckpt_deploy_path(dev, ident: str, tmp) -> int:
@@ -2218,14 +2233,13 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def tiled_path(dev, ident: str) -> dict:
-    """11(c): the tiled sweep on phase 3's seeded boxes: against kernel #1
-    and the CPU at N=512 and 2048, and past kernel #1's limit at N=8400 (all
-    anchors of a 640 image), where the kernel refuses, against the plain
-    sweep and the pairwise sweep; device and wall ms of each route."""
-    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled, nms
+    """11(c), first half: the tiled sweep on phase 3's seeded boxes at B=32
+    and N=512 and 2048, against kernel #1 and the CPU, device and wall ms
+    of each route."""
+    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled
 
     rows = {}
-    for i, n in enumerate((512, 2048, TILED_LONG_N)):
+    for i, n in enumerate((512, 2048)):
         boxes, valid = seeded_boxes(100 + i, (BATCH, n), dev)  # phase 3's seeds
         # rows are score-sorted: descending distinct scores keep the order
         scores = torch.linspace(1.0, 0.0, n, device=dev).expand(BATCH, n).contiguous()
@@ -2234,50 +2248,144 @@ def tiled_path(dev, ident: str) -> dict:
             return batched_nms_tiled(boxes, scores, valid, iou_threshold=IOU, max_det=n)
 
         keep = tiled()
-        torch.cuda.synchronize()
-        row = dict(kept=int(keep.sum()), tiled_ms=device_ms(tiled, reps=5),
-                   tiled_wall_ms=wall_ms(tiled, 5))
-        if n <= K._max_n():
-            kern = K.nms_sweep_batched(boxes, valid, IOU)
-            cpu = batched_nms_tiled(boxes.cpu(), scores.cpu(), valid.cpu(), iou_threshold=IOU,
-                                    max_det=n)
-            if not (torch.equal(keep, kern) and torch.equal(keep.cpu(), cpu)):
-                raise AssertionError(f"tiled sweep at B={BATCH}, N={n}: equal to kernel #1: "
-                                     f"{torch.equal(keep, kern)}, to the CPU's: "
-                                     f"{torch.equal(keep.cpu(), cpu)}")
-            row["kernel_ms"] = call_ms(lambda: K.nms_sweep_batched(boxes, valid, IOU),
-                                       NMS_SYMBOLS)[0]
-        else:
-            try:
-                K.nms_sweep_batched(boxes, valid, IOU)
-            except ValueError:
-                pass
-            else:
-                raise AssertionError(f"kernel #1 took N={n}, past its {K._max_n()} boxes")
-            plain = K.nms_sweep_batched_plain(boxes, valid, IOU)
-
-            def pairwise():
-                return nms(boxes[0], scores[0], iou_threshold=IOU, max_det=n, valid=valid[0],
-                           presorted=True)
-
-            pw = pairwise()
-            if not (torch.equal(keep, plain) and torch.equal(keep[0], pw)):
-                raise AssertionError(f"tiled sweep at B={BATCH}, N={n}: equal to the plain "
-                                     f"sweep: {torch.equal(keep, plain)}, image 0 to the "
-                                     f"pairwise sweep: {torch.equal(keep[0], pw)}")
-            row["pairwise_wall_ms_per_image"] = wall_ms(pairwise, 1)
-        rows[n] = row
+        kern = K.nms_sweep_batched(boxes, valid, IOU)
+        cpu = batched_nms_tiled(boxes.cpu(), scores.cpu(), valid.cpu(), iou_threshold=IOU,
+                                max_det=n)
+        if not (torch.equal(keep, kern) and torch.equal(keep.cpu(), cpu)):
+            raise AssertionError(f"tiled sweep at B={BATCH}, N={n}: equal to kernel #1: "
+                                 f"{torch.equal(keep, kern)}, to the CPU's: "
+                                 f"{torch.equal(keep.cpu(), cpu)}")
+        rows[n] = dict(kept=int(keep.sum()), tiled_ms=device_ms(tiled, reps=5),
+                       tiled_wall_ms=wall_ms(tiled, 5),
+                       kernel_ms=call_ms(lambda: K.nms_sweep_batched(boxes, valid, IOU),
+                                         NMS_SYMBOLS)[0])
     short = "; ".join(f"B={BATCH}, N={n}: {r['kept']} kept, tiled {r['tiled_ms']:.4f} ms device "
                       f"({r['tiled_wall_ms']:.2f} ms wall) vs kernel #1 {r['kernel_ms']:.4f} ms"
-                      for n, r in rows.items() if "kernel_ms" in r)
-    r = rows[TILED_LONG_N]
+                      for n, r in rows.items())
     log(f"11(c) tiled sweep (nms_impl='tiled', PyTorch ops) on phase 3's seeded boxes: keep "
-        f"masks equal kernel #1's and the CPU tiled sweep's; {short}; past kernel #1's "
-        f"{K._max_n()} boxes (it refuses), B={BATCH}, N={TILED_LONG_N}: {r['kept']} kept, equal "
-        f"to the plain sweep's and, on image 0, the pairwise sweep's; tiled "
-        f"{r['tiled_ms']:.4f} ms device ({r['tiled_wall_ms']:.2f} ms wall) for {BATCH} images "
-        f"vs pairwise {r['pairwise_wall_ms_per_image']:.2f} ms wall for one image on {ident}")
+        f"masks equal kernel #1's and the CPU tiled sweep's; {short} on {ident}")
     return rows
+
+
+def long_sweep(dev, name: str, B: int, n: int, with_plain: bool, seed: int) -> dict:
+    """One case of :data:`LONG_SWEEPS`: the kernel against the tiled sweep
+    and, ``with_plain``, the plain sweep on seeded boxes (B, n), exact; the
+    kernel's device ms (mask and reduce summed, or every chunk's kernels),
+    the tiled sweep's, the plain sweep's wall ms (one call), the bound, the
+    mask scratch."""
+    from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled
+
+    boxes, valid = seeded_boxes(seed, (B, n), dev)
+    scores = torch.linspace(1.0, 0.0, n, device=dev).expand(B, n).contiguous()
+    args = (boxes, valid) if name == "nms_sweep_batched" else (boxes[0], valid[0])
+
+    def kernel():
+        return getattr(K, name)(*args, IOU)
+
+    def tiled():
+        return batched_nms_tiled(boxes, scores, valid, iou_threshold=IOU, max_det=n)
+
+    keep, tk = kernel().reshape(B, n), tiled()
+    plain, plain_ms = tk, None
+    if with_plain:
+        t0 = time.perf_counter()
+        plain = K.nms_sweep_batched_plain(boxes, valid, IOU)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(keep, tk) and torch.equal(tk, plain)):
+        raise AssertionError(f"{name} at B={B}, N={n}: equal to the tiled sweep: "
+                             f"{torch.equal(keep, tk)}, the tiled sweep to the plain one: "
+                             f"{torch.equal(tk, plain)}")
+    stride = K._mask_stride(n)
+    chunk = K._chunk_images(B, n, stride)
+    chunks = -(-B // chunk)
+    if chunks == 1:
+        ms, split = call_ms(kernel, NMS_SYMBOLS, reps=10)
+    else:  # each chunk launches its own mask and reduce: the call's device time
+        ms, split = device_ms(kernel, reps=5), None
+    bound_ms, bound_by = bound(keep, n)
+    return dict(name=name, B=B, n=n, kept=int(keep.sum()), ms=ms, split=split,
+                tiled_ms=device_ms(tiled, reps=1), plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, scratch_bytes=chunk * n * stride * 8, chunks=chunks,
+                pairs=B * n * (n - 1) // 2, chain=-(-n // 64))
+
+
+def long_sweep_path(dev, ident: str) -> dict:
+    """11(c), second half: kernels #1 and #2 past the register reduce's 4096
+    boxes (:data:`LONG_SWEEPS`), against the tiled sweep and where the case
+    says so the plain one, and at N=8400 on one image the pairwise sweep."""
+    from yolo_scratch_tpu_torch.ops.nms import nms
+
+    rows = [long_sweep(dev, *case, seed=110 + i) for i, case in enumerate(LONG_SWEEPS)]
+    boxes, valid = seeded_boxes(110, (BATCH, TILED_LONG_N), dev)  # LONG_SWEEPS[0]'s
+    scores = torch.linspace(1.0, 0.0, TILED_LONG_N, device=dev)
+
+    def pairwise():
+        return nms(boxes[0], scores, iou_threshold=IOU, max_det=TILED_LONG_N, valid=valid[0],
+                   presorted=True)
+
+    t0 = time.perf_counter()
+    pw = pairwise()
+    torch.cuda.synchronize()
+    pairwise_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(pw, K.nms_sweep(boxes[0], valid[0], IOU)):
+        raise AssertionError(f"pairwise sweep at N={TILED_LONG_N}: differs from kernel #2")
+    for r in rows:
+        split = (f" (mask {r['split'][NMS_SYMBOLS[0]]:.4f} + reduce "
+                 f"{r['split'][NMS_SYMBOLS[1]]:.4f})" if r["split"] else "")
+        plain = (f"the plain and tiled sweeps; plain {r['plain_ms']:.1f} ms wall" if r["plain_ms"]
+                 else "the tiled sweep")
+        log(f"11(c) {r['name']} B={r['B']}, N={r['n']}: {r['kept']} kept, equal to {plain}; "
+            f"kernel {r['ms']:.4f} ms device{split}, tiled {r['tiled_ms']:.4f} ms device; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {r['pairs']:,} pairs, a reduce chain of "
+            f"{r['chain']} blocks); mask scratch {r['scratch_bytes'] / 1e6:.1f} MB in "
+            f"{r['chunks']} chunk(s) under the {K._SCRATCH_CAP_BYTES / 2**30:.0f} GiB cap")
+    log(f"11(c) pairwise sweep at N={TILED_LONG_N} (image 0): equal to kernel #2, "
+        f"{pairwise_ms:.2f} ms wall on {ident}")
+    return dict(rows=rows, pairwise_wall_ms=pairwise_ms)
+
+
+def long_topk_path(dev, ident: str, tmp) -> int:
+    """11(c): ``--topk 8400`` at conf 0 (every anchor of a 640 image a
+    candidate), B=32, crater: the Predictor's detections equal the plain
+    sweep's with kernel #1 launched once a batch; ``export.main --topk
+    8400`` writes an artifact that launches it too and equals the live
+    Predictor. Returns kernel #1's launches."""
+    from yolo_scratch_tpu_torch import export as E
+
+    cfg = PredictorConfig(img_size=IMGSZ, batch_size=BATCH, conf_threshold=0.0,
+                          pre_nms_topk=TILED_LONG_N)
+    pred = Predictor(load_deploy_model(device=dev), cfg, device=dev)
+    x = np.random.RandomState(14).randint(0, 256, (BATCH, IMGSZ, IMGSZ, 1), dtype=np.uint8)
+    K.reset_launches()
+    live = pred.predict_batch(x)
+    torch.cuda.synchronize()
+    launches = K.launches["nms_sweep_batched"]
+    check_packed(live, BATCH, cfg.max_det)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        got, ref = pred.postprocess_feats(feats), plain_packed(pred, feats)
+    if launches != 1 or not torch.equal(got, ref) or not torch.equal(live, got):
+        raise AssertionError(f"Predictor at --topk {TILED_LONG_N}: kernel #1 launches "
+                             f"{launches}, detections equal to the plain sweep's: "
+                             f"{torch.equal(got, ref)}")
+    batch_ms = wall_ms(lambda: pred.predict_batch(x), 5)
+    path = str(tmp / "topk8400.pt2")
+    E.main(["--imgsz", str(IMGSZ), "--batch", str(BATCH), "--conf", "0", "--topk",
+            str(TILED_LONG_N), "--out", path])
+    art = E.ArtifactPredictor(E.load_artifact(path))
+    K.reset_launches()
+    out = art.predict_batch(x)
+    torch.cuda.synchronize()
+    n = K.launches["nms_sweep_batched"]
+    if n != 1 or not torch.equal(out, live):
+        raise AssertionError(f"export --topk {TILED_LONG_N}: kernel #1 launches {n}, artifact "
+                             f"equal to the live Predictor: {torch.equal(out, live)}")
+    log(f"11(c) Predictor at --topk {TILED_LONG_N}, conf 0, B={BATCH}, {IMGSZ}, crater: "
+        f"{int(live[..., 6].sum())} kept, equal to the plain sweep's; kernel #1 launches "
+        f"{launches}; {batch_ms:.2f} ms a batch wall; export.main --topk {TILED_LONG_N}: "
+        f"the artifact equals the live Predictor, kernel #1 launches {n} on {ident}")
+    return launches + n
 
 
 def dga_path(dev) -> None:
@@ -2426,13 +2534,15 @@ def slice_g_phase(dev, ident: str) -> dict:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
         launches = ckpt_deploy_path(dev, ident, Path(td))
+        launches += long_topk_path(dev, ident, Path(td))
     launches += blocked_topk_path(dev, ident)
     rows = tiled_path(dev, ident)
+    long_rows = long_sweep_path(dev, ident)
     dga_path(dev)
     legacy_path(dev, ident)
     model_info_path(dev, ident)
     log(f"slice G phase: {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launches, tiled=rows)
+    return dict(launches=launches, tiled=rows, long=long_rows)
 
 
 # slice H (phase 12): the flat update vector, background checkpoint writes,
@@ -3711,7 +3821,8 @@ def main() -> int:
     # validation paths of both families, on phase 9's int8 Predictor,
     # artifacts, daemons and infer CLI, and on phase 10's mesh validation
     # (every rank's, summed) and shard_over replicas, and on phase 11's
-    # checkpoint deploy (infer, export, serve) and blocked top-k paths, and on
+    # checkpoint deploy (infer, export, serve), --topk 8400 (Predictor and
+    # artifact) and blocked top-k paths, and on
     # phase 12's trainer, val, overfit and eval_quant runs, and on phase 13's
     # benches, and on phase 14's trainer runs and profile_forward --full, and
     # on phase 15's Predictor and resumed trainer over the JAX checkpoint, and

@@ -69,7 +69,11 @@ def _np(t):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 8, 24, 64, 64),
-                                   (2, 12, 12, 128, 64)])
+                                   (2, 12, 12, 128, 64),
+                                   # widths off the multiples of 16, which the
+                                   # Pallas kernel takes and the CUDA kernel's
+                                   # wrapper pads with zero channels
+                                   (2, 12, 12, 8, 24), (1, 9, 14, 24, 8)])
 def test_bottleneck_matches_jax_f32(shape):
     jx, tx = _case(0, *shape, jnp.float32)
     ref = np.asarray(bottleneck_xla(*jx))
@@ -90,6 +94,24 @@ def test_bottleneck_matches_jax_bf16():
         np.testing.assert_allclose(got, want, rtol=0.05, atol=0.05)
         for ends in ((slice(None), [0, -1]), (slice(None), slice(None), [0, -1])):
             np.testing.assert_allclose(got[ends], want[ends], rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,Ch", [(8, 24), (24, 8), (40, 20)])
+def test_zero_channel_padding_keeps_the_output(dtype, C, Ch):
+    """The CUDA wrapper's padding (``_pad_channels``) to multiples of 16: the
+    padded bottleneck's first C channels equal the unpadded one's, within
+    the file's tolerance for the dtype (the padded convs may sum in another
+    order), and its padded channels are zero."""
+    from yolo_scratch_tpu_torch.ops.conv_kernels import _pad_channels
+
+    _, tx = _case(2, 2, 10, 11, C, Ch, dtype)
+    padded = _pad_channels(*tx)
+    assert padded[0].shape[-1] % 16 == 0 and padded[1].shape[-1] % 16 == 0
+    got, ref = bottleneck_plain(*padded), bottleneck_plain(*tx)
+    tol = 1e-5 if dtype == jnp.float32 else 0.05
+    np.testing.assert_allclose(_np(got[..., :C]), _np(ref), rtol=tol, atol=tol)
+    assert not got[..., C:].any()
 
 
 def _conv_taps(a, w_ohwi):

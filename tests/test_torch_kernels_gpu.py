@@ -3,8 +3,12 @@ card.
 
 * NMS sweeps (kernels #1, #2): exact. Keep masks are booleans and the
   kernels round every f32 operation as the plain sweep does; the IoU mask
-  kernel's words equal ``nms_iou_mask_plain``'s bit for bit.
-* Fused bottleneck (kernel #3): bf16 at rtol = atol = 0.05, the border rows
+  kernel's words equal ``nms_iou_mask_plain``'s bit for bit. At any N:
+  past 4096 boxes (the register reduce's reach) the reduce keeps its words
+  in shared memory, past 23,104 the mask's tiles run over two grid
+  dimensions, and a call whose scratch passes the cap sweeps in chunks.
+* Fused bottleneck (kernel #3), at any C (widths off the multiples of 16
+  run padded with zero channels): bf16 at rtol = atol = 0.05, the border rows
   and columns also on their own (h is rounded to bf16 once; a sum in another
   order can round it to the neighbouring value). f32 (3xTF32 on the tensor
   cores) at rtol = atol = 1e-5, the JAX tests' tolerance, at every C up to
@@ -25,8 +29,7 @@ card.
   detections equal to the plain sweep's, exactly.
 * Slice G: kernel #1 on the blocked-top-k and checkpoint deploy paths
   equals the plain sweep, exactly; the tiled sweep (PyTorch ops) on the
-  card equals kernel #1 and the CPU, exactly, and past kernel #1's 4096
-  boxes, where the kernel refuses, its plain version.
+  card equals kernel #1 and the CPU, exactly, also at N = 8400.
 * Slice H: a ``flat_opt`` train step on the card (its parameters views of
   one 256-byte-aligned buffer) against the per-leaf step, at
   ``chip_smoke.py`` phase 7(a)'s tolerances; ``overfit_check`` validates
@@ -75,7 +78,10 @@ def _inputs(seed, shape, device, spread=640.0):
 
 
 @pytest.mark.parametrize("B,N", [(32, 512), (4, 2048), (3, 77), (2, 4000), (2, 1), (3, 64),
-                                 (2, 65)])
+                                 (2, 65),
+                                 # past the register reduce's 4096 boxes: one word
+                                 # past, every anchor of a 640 and a 1024 image
+                                 (32, 4097), (32, 8400), (2, 21504)])
 def test_kernel_batched_matches_plain(cuda, B, N):
     boxes, valid = _inputs(B + N, (B, N), cuda)
     before = K.launches["nms_sweep_batched"]
@@ -85,7 +91,28 @@ def test_kernel_batched_matches_plain(cuda, B, N):
     assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
 
 
-@pytest.mark.parametrize("N", [512, 2048, 77, 1, 64, 65])
+def test_kernel_chunked_call_matches_unchunked_plain(cuda, monkeypatch):
+    """B=128 at N=8400 holds 1.14 GB of mask scratch, past the 1 GiB cap:
+    one call sweeps two chunks of 64 images, one launch counted. Then a cap
+    of two images' scratch at B=5 (chunks 2, 2, 1) and of less than one
+    image (chunks of 1)."""
+    boxes, valid = _inputs(3, (128, 8400), cuda)
+    assert K._chunk_images(128, 8400, K._mask_stride(8400)) == 64
+    before = K.launches["nms_sweep_batched"]
+    got = K.nms_sweep_batched(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before + 1
+    assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
+    boxes, valid = _inputs(4, (5, 4500), cuda)
+    ref = K.nms_sweep_batched_plain(boxes, valid, 0.45)
+    image_bytes = 4500 * K._mask_stride(4500) * 8
+    for cap, chunk in ((2 * image_bytes, 2), (image_bytes - 1, 1)):
+        monkeypatch.setattr(K, "_SCRATCH_CAP_BYTES", cap)
+        assert K._chunk_images(5, 4500, K._mask_stride(4500)) == chunk
+        assert torch.equal(K.nms_sweep_batched(boxes, valid, 0.45), ref)
+
+
+@pytest.mark.parametrize("N", [512, 2048, 77, 1, 64, 65, 4097, 8400, 33600])
 def test_kernel_single_matches_plain(cuda, N):
     boxes, valid = _inputs(N, (N,), cuda)
     before = K.launches["nms_sweep"]
@@ -111,7 +138,8 @@ def test_kernel_threshold_ties_match_plain(cuda):
 @pytest.mark.parametrize("with_valid", [False, True], ids=["all", "valid"])
 @pytest.mark.parametrize("B,N,thr,spread", [
     (2, 1, 0.45, 640.0), (3, 77, 0.45, 640.0), (2, 64, 0.45, 100.0), (2, 65, 0.0, 100.0),
-    (4, 512, 0.45, 640.0), (2, 300, -0.1, 640.0), (1, 4000, 0.45, 640.0), (2, 200, 0.45, 40.0)])
+    (4, 512, 0.45, 640.0), (2, 300, -0.1, 640.0), (1, 4000, 0.45, 640.0), (2, 200, 0.45, 40.0),
+    (2, 4160, 0.45, 640.0), (1, 8400, -0.1, 640.0)])
 def test_kernel_iou_mask_matches_plain(cuda, B, N, thr, spread, with_valid):
     """Phase 1 alone: the mask kernel's words, bit 63 included, equal the
     plain version's, with every box valid and with ~10% invalid (their rows
@@ -165,10 +193,6 @@ def test_kernel_wrapper_rejects_bad_input(cuda):
         K._launch("nms_sweep_batched", torch.zeros((2, 16, 4), device=cuda)[:, ::2], valid, 0.45)
     with pytest.raises(ValueError):
         K._launch("nms_sweep_batched", torch.zeros((2, 8, 4)), valid.cpu(), 0.45)
-    with pytest.raises(ValueError, match="remv words"):
-        n = K._max_n() + 1
-        K._launch("nms_sweep_batched", torch.zeros((1, n, 4), device=cuda),
-                  torch.ones((1, n), dtype=torch.bool, device=cuda), 0.45)
 
 
 # ----------------------------------------------------------- fused bottleneck
@@ -188,7 +212,9 @@ def _bneck_inputs(seed, B, H, W, C, Ch, dtype, device):
     # the wgmma path's edges: M not a multiple of 64 with a ragged last tile;
     # N = 48 and N = 16 (C = 16: one k16 step per tap); four weight stages
     # per tap (K = 256) on a ragged tile
-    (2, 13, 29, 64, 64), (1, 10, 11, 16, 48), (2, 9, 14, 48, 16), (1, 13, 17, 256, 256)])
+    (2, 13, 29, 64, 64), (1, 10, 11, 16, 48), (2, 9, 14, 48, 16), (1, 13, 17, 256, 256),
+    # widths off the multiples of 16, padded with zero channels
+    (2, 12, 12, 8, 24), (1, 9, 14, 24, 8), (2, 10, 10, 40, 20)])
 def test_bottleneck_kernel_matches_plain(cuda, dtype, B, H, W, C, Ch):
     inputs = _bneck_inputs(B * H + C, B, H, W, C, Ch, dtype, cuda)
     before = CK.launches["fused_bottleneck"]
@@ -266,8 +292,6 @@ def test_bottleneck_wrapper_rejects_bad_input(cuda):
         CK._launch(x, w1, b1.bfloat16(), w2, b2)
     with pytest.raises(ValueError, match="contiguous"):
         CK._launch(x.transpose(1, 2), w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        CK._launch(*_bneck_inputs(0, 1, 8, 8, 24, 24, torch.bfloat16, cuda))
     for dtype in (torch.bfloat16, torch.float32):  # a 5x5 x tile is 410 KB (bf16)
         with pytest.raises(ValueError, match="shared memory"):
             CK._launch(*_bneck_inputs(0, 1, 4, 4, 8192, 16, dtype, cuda))
@@ -514,6 +538,35 @@ def test_exported_artifact_launches_kernel_1(cuda, tmp_path, int8):
     assert torch.equal(got, live) and int(got[..., 6].sum()) > 0
 
 
+def test_predictor_and_artifact_past_4096_candidates_sweep_kernel_1(cuda, tmp_path):
+    """``--topk 8400`` at 448 px (4,116 anchors, every one a candidate at
+    conf 0), B=2: the live Predictor's detections equal the plain sweep's,
+    and an artifact exported at that topk launches kernel #1 once a batch
+    and equals the live Predictor."""
+    from chip_smoke import eval_model, plain_packed
+    from yolo_scratch_tpu_torch import export as E
+    from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig
+
+    cfg = PredictorConfig(img_size=448, batch_size=2, conf_threshold=0.0, pre_nms_topk=8400)
+    pred = Predictor(eval_model().to(cuda), cfg, device=cuda)
+    x = np.random.RandomState(8).randint(0, 256, (2, 448, 448, 1), dtype=np.uint8)
+    with torch.inference_mode():
+        feats = pred.forward_feats(x)
+        before = K.launches["nms_sweep_batched"]
+        live = pred.postprocess_feats(feats)
+        torch.cuda.synchronize()
+        assert K.launches["nms_sweep_batched"] == before + 1
+        assert torch.equal(live, plain_packed(pred, feats)) and int(live[..., 6].sum()) > 0
+    path = str(tmp_path / "m.pt2")
+    E.save_artifact(E.export_predictor(pred), path)
+    art = E.ArtifactPredictor(E.load_artifact(path))
+    before = K.launches["nms_sweep_batched"]
+    got = art.predict_batch(x)
+    torch.cuda.synchronize()
+    assert K.launches["nms_sweep_batched"] == before + 1
+    assert torch.equal(got, pred.predict_batch(x))
+
+
 def test_mesh_validation_sweeps_kernel_1_on_every_rank(cuda, tmp_path):
     """Two gloo ranks on cuda:0 (the transport rule for ranks that share a
     card) each put their rows of one validation batch through the mesh eval
@@ -595,18 +648,17 @@ def test_tiled_sweep_on_the_card_equals_kernel_1(cuda, B, N):
 
 
 def test_tiled_sweep_on_the_card_past_kernel_1s_limit(cuda):
-    """At N = 8400 (every anchor of a 640 image) kernel #1 refuses, and the
-    tiled sweep on the card equals kernel #1's plain version."""
+    """At N = 8400 (every anchor of a 640 image), past the 4096 boxes
+    kernel #1 once refused: the tiled sweep on the card, kernel #1 and the
+    plain sweep keep the same boxes."""
     from yolo_scratch_tpu_torch.ops.nms import batched_nms_tiled
 
     B, N = 2, 8400
-    assert N > K._max_n()
     boxes, valid = _inputs(N, (B, N), cuda)
     scores = torch.linspace(1.0, 0.0, N, device=cuda).expand(B, N).contiguous()
-    with pytest.raises(ValueError, match="nms_impl='tiled'"):
-        K.nms_sweep_batched(boxes, valid, 0.45)
     got = batched_nms_tiled(boxes, scores, valid, iou_threshold=0.45, max_det=N)
     assert torch.equal(got, K.nms_sweep_batched_plain(boxes, valid, 0.45))
+    assert torch.equal(got, K.nms_sweep_batched(boxes, valid, 0.45))
 
 
 def test_flat_opt_step_on_the_card_equals_per_leaf(cuda):

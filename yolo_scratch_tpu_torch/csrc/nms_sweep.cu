@@ -17,34 +17,55 @@
 //
 // Phase 1, nms_iou_mask_kernel: every pair's suppression bit, computed on
 // all SMs, off the serial chain. A block takes one image's tile of 64 rows
-// by 64 columns, upper triangle only (column tile >= row tile); each of its
-// 64 threads owns a row i and writes one 64-bit word mask[b][i][ct], bit k
-// set iff j = 64 ct + k has i < j < n, boxes i and j are valid, and pivot
-// i's IoU with j exceeds thr. An invalid box's bits do not matter (it is
-// never kept, and the reduce never ORs in its word), so an invalid row's
-// word is 0 and an invalid column's bit is left clear; the words left of a
-// row's own tile are never written. What bounds it: the IoU tests, n^2/2
-// per image. A thread first marks the columns that may intersect its row
-// (four compares), then divides only for those: with inter == 0 the IoU is
-// +-0 or NaN, never > thr when thr >= 0, so the skip is exact (a negative
-// thr divides every pair). Most pairs of a detector's candidates are
-// disjoint.
+// by 64 columns, upper triangle only (column tile >= row tile; past 4096
+// boxes the tile index p decodes to its row and column in closed form, and
+// runs over grid.y and grid.z, since CUDA caps grid.y at 65,535 tiles);
+// each of its 64 threads owns a row i and writes one 64-bit word
+// mask[b][i][ct], bit k set iff j = 64 ct + k has i < j < n, boxes i and j
+// are valid, and pivot i's IoU with j exceeds thr. An invalid box's bits do
+// not matter (it is never kept, and the reduce never ORs in its word), so
+// an invalid row's word is 0 and an invalid column's bit is left clear; the
+// words left of a row's own tile are never written. What bounds it: the IoU
+// tests, n^2/2 per image. A thread first marks the columns that may
+// intersect its row (four compares), then divides only for those: with
+// inter == 0 the IoU is +-0 or NaN, never > thr when thr >= 0, so the skip
+// is exact (a negative thr divides every pair). Most pairs of a detector's
+// candidates are disjoint.
 //
-// Phase 2, nms_reduce_kernel: four warps per image walk its ceil(n/64)
-// blocks of 64 pivots in order, with the suppression words (remv) in
-// registers, word w in lane w % 32. For block t, every warp resolves the 64
-// pivots against their diagonal words (mask[i][t], loaded a block ahead
-// and staged in shared memory): pivot k is kept iff its valid bit is set
-// and its remv bit clear, and a kept pivot's word is ORed in -- three
-// dependent integer operations a pivot. Warp g then ORs the kept
-// rows among the block's rows 16g .. 16g+15 into its share of the later
+// Phase 2, nms_reduce_kernel<WPL> (n <= 4096): four warps per image walk
+// its ceil(n/64) blocks of 64 pivots in order, with the suppression words
+// (remv) in registers, word w in lane w % 32. For block t, every warp
+// resolves the 64 pivots against their diagonal words (mask[i][t], loaded
+// a block ahead and staged in shared memory): pivot k is kept iff its
+// valid bit is set and its remv bit clear, and a kept pivot's word is ORed
+// in -- three dependent integer operations a pivot. Warp g then ORs the
+// kept rows among the block's rows 16g .. 16g+15 into its share of the later
 // remv words (their loads issued before the resolve, so the round trip to
 // L2 runs under it), and the four shares of word t+1 meet in shared memory
 // once a block. What bounds it: the chain of ceil(n/64) blocks, each a
 // resolve of 64 dependent steps and a block-wide barrier. The mask's
 // rows are padded to the reduce's 32 or 64 lanes of words
-// (yst_nms_mask_stride), so its loads take constant offsets; the words a
-// lane holds set the largest n (yst_nms_max_n).
+// (yst_nms_mask_stride), so its loads take constant offsets.
+//
+// Phase 2 past 4096 boxes, nms_reduce_kernel_long: the same walk and the
+// same resolve, with remv in shared memory (8 bytes a word: 4.2 KB at
+// n = 33,600), so n is bounded by the mask's device memory, not by
+// registers. Only word t+1 is on the chain, so the chain and the rest are
+// split: warp 0 resolves block t and ORs its kept rows' word t+1 (loaded
+// a block ahead) into a carry for block t+1, while the other 31 warps OR
+// block t-1's kept rows into words t+1 on: a word to a thread, or to
+// several threads that split its kept rows where fewer words than threads
+// are left, 8 loads in flight a thread and one shared-memory atomic a
+// thread (a 64-bit shared OR is a compare-and-swap loop on sm_90: one a
+// load was slower). What bounds it: the chain, a resolve and a barrier a
+// block, or the bulk where that is longer: its loads' round trips and, at
+// large n, the kept rows' bytes one SM draws (each kept row's words past
+// its block, read once). The mask's rows are ceil(n/64) words.
+//
+// Scratch: the mask takes n * stride * 8 bytes an image (1.1 GB at B=128,
+// n=8400). A call sweeps its batch in chunks of images that share one
+// scratch buffer, mask then reduce for each chunk on the stream; the
+// wrapper sizes the chunk to its cap. Offsets into the mask are 64-bit.
 //
 // Exactness: the IoU is written with __f*_rn intrinsics in the JAX operation
 // order, and the library is built with -fmad=false, so no multiply-add is
@@ -59,14 +80,39 @@ using u64 = unsigned long long;
 
 constexpr int kTile = 64;            // pivots per mask word; threads per mask block
 constexpr int kMaxWordsPerLane = 2;  // remv words one reduce lane holds
-constexpr int kMaxWords = 32 * kMaxWordsPerLane;
+constexpr int kMaxWords = 32 * kMaxWordsPerLane;  // past this, nms_reduce_kernel_long
 constexpr int kReduceWarps = 4;      // a reduce block's warps; each ORs 16 rows of a block
+constexpr int kReduceThreads = kReduceWarps * 32;
 constexpr int kRowsPerWarp = kTile / kReduceWarps;
+constexpr int kLongThreads = 32 * 32;  // the long reduce: one resolving warp, 31 ORing
+constexpr int kBulkThreads = kLongThreads - 32;
+constexpr int kLoadsInFlight = 8;    // kept rows' words a long-reduce thread loads at once
+constexpr int kMaxGridYZ = 65535;    // CUDA's cap on gridDim.y and gridDim.z
+constexpr size_t kSharedWithoutOptIn = 48 * 1024;  // dynamic shared memory without an opt-in
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// remv words a reduce lane holds for ceil(n/64) words: 1 or 2
+// remv words a reduce lane holds for ceil(n/64) <= 64 words: 1 or 2
 __host__ __device__ constexpr int words_per_lane(int words) {
   return words <= 32 ? 1 : kMaxWordsPerLane;
+}
+
+// The mask's row stride in words for ceil(n/64) words: the register
+// reduce's 32 or 64 lanes of words, else the words themselves.
+constexpr int mask_stride(int words) {
+  return words <= kMaxWords ? 32 * words_per_lane(words) : words;
+}
+
+// Tile p of a words x words upper triangle, numbered row by row (row rt
+// holds columns rt .. words-1) -> (rt, ct). Counted from the end, q =
+// T-1-p numbers a lower triangle row by row, whose row r starts at
+// r(r+1)/2: r from the square root, corrected to the exact integer.
+__device__ __forceinline__ void triangle_tile(long long p, int words, int& rt, int& ct) {
+  const long long q = static_cast<long long>(words) * (words + 1) / 2 - 1 - p;
+  long long r = static_cast<long long>((sqrt(8.0 * static_cast<double>(q) + 1.0) - 1.0) * 0.5);
+  while (r * (r + 1) / 2 > q) --r;
+  while ((r + 1) * (r + 2) / 2 <= q) ++r;
+  rt = words - 1 - static_cast<int>(r);
+  ct = words - 1 - static_cast<int>(q - r * (r + 1) / 2);
 }
 
 // Candidate a against pivot b, in the sweep's operation order.
@@ -100,9 +146,10 @@ __device__ __forceinline__ bool overlaps(float4 a, float4 b) {
   return (a.z > b.x) & (b.z > a.x) & (a.w > b.y) & (b.w > a.y);
 }
 
-// Grid (image, upper-triangle tile), kTile threads. Row i's words lie at
-// mask[(b * n + i) * stride + w], stride = 32 * words_per_lane(words).
-// valid may be null (every box valid).
+// Grid (image, tile p mod gridDim.y, p / gridDim.y) over the upper
+// triangle's tiles, kTile threads. Row i's words lie at
+// mask[(b * n + i) * stride + w], stride = mask_stride(words). valid may
+// be null (every box valid).
 __global__ void __launch_bounds__(kTile)
     nms_iou_mask_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
                         u64* __restrict__ mask, int n, int stride, float thr) {
@@ -110,12 +157,19 @@ __global__ void __launch_bounds__(kTile)
   __shared__ float col_area[kTile];
   __shared__ unsigned col_valid[kTile / 32];
   const int words = (n + kTile - 1) / kTile;
-  int rt = 0, p = blockIdx.y;  // tile p of the triangle -> (row tile rt, column tile ct)
-  while (p >= words - rt) {
-    p -= words - rt;
-    ++rt;
+  int rt = 0, ct;
+  if (words <= kMaxWords) {  // n <= 4096: a short walk down the rows
+    int p = blockIdx.y;
+    while (p >= words - rt) {
+      p -= words - rt;
+      ++rt;
+    }
+    ct = rt + p;
+  } else {
+    const long long p = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
+    if (p >= static_cast<long long>(words) * (words + 1) / 2) return;  // the last z's spare tiles
+    triangle_tile(p, words, rt, ct);
   }
-  const int ct = rt + p;
   const size_t img = blockIdx.x;
   boxes += img * n;
   if (valid) valid += img * n;
@@ -290,28 +344,170 @@ __global__ void __launch_bounds__(kReduceWarps * 32)
   }
 }
 
+// Grid (image), kLongThreads threads, dynamic shared memory of
+// ceil(n/64) words (remv). Any n; the register kernel runs up to 4096.
+// Iteration t: warp 0 resolves block t, then ORs the kept rows' word t+1
+// (loaded a block ahead) into its carry for block t+1; meanwhile the other
+// warps OR block t-1's kept rows into words t+1 on (the bulk, off the
+// chain). One barrier an iteration.
+__global__ void __launch_bounds__(kLongThreads)
+    nms_reduce_kernel_long(const u64* __restrict__ mask, const uint8_t* __restrict__ valid,
+                           uint8_t* __restrict__ keep, int n, int stride) {
+  extern __shared__ u64 remv[];    // word w: ORed over the kept rows of blocks < w - 1
+  __shared__ u64 diag[kTile];      // warp 0's: block t's diagonal words
+  __shared__ uint8_t kept_row[2][kTile];  // block t's kept rows in order, by t's parity
+  __shared__ int kept_count[2];
+  const int words = (n + kTile - 1) / kTile;
+  const size_t img = blockIdx.x;
+  mask += img * n * stride;
+  valid += img * n;
+  keep += img * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int w = tid; w < words; w += kLongThreads) remv[w] = 0;
+  if (tid < 2) kept_count[tid] = 0;  // "block -1" kept nothing
+  __syncthreads();
+
+  // warp 0: block t's rows 64t + lane and 64t + 32 + lane, their valid
+  // flags, diagonal words and words t+1, loaded one block ahead
+  struct Block {
+    u64 d0, d1, c0, c1;
+    bool v0, v1;
+  };
+  auto load_block = [&](int t) {
+    const int i0 = t * kTile + lane, i1 = i0 + 32;
+    const bool next = t + 1 < words;
+    Block b;
+    b.v0 = i0 < n && valid[i0];
+    b.v1 = i1 < n && valid[i1];
+    b.d0 = i0 < n ? mask[static_cast<size_t>(i0) * stride + t] : 0;
+    b.d1 = i1 < n ? mask[static_cast<size_t>(i1) * stride + t] : 0;
+    b.c0 = i0 < n && next ? mask[static_cast<size_t>(i0) * stride + t + 1] : 0;
+    b.c1 = i1 < n && next ? mask[static_cast<size_t>(i1) * stride + t + 1] : 0;
+    return b;
+  };
+  Block cur;
+  u64 carry = 0;  // warp 0: block t-1's kept rows' word t
+  if (warp == 0) cur = load_block(0);
+  for (int t = 0; t < words; ++t) {
+    if (warp == 0) {
+      diag[lane] = cur.d0;
+      diag[lane + 32] = cur.d1;
+      const u64 vbits = __ballot_sync(kFullWarp, cur.v0) |
+                        static_cast<u64>(__ballot_sync(kFullWarp, cur.v1)) << 32;
+      const u64 c0 = cur.c0, c1 = cur.c1;
+      cur = load_block(t + 1);  // in flight during this block
+      // remv word t: blocks < t-1 (the bulk) and block t-1 (the carry); an
+      // invalid pivot counts as suppressed
+      const u64 r = ~vbits | remv[t] | carry;
+      __syncwarp();  // diag is visible to every lane
+      unsigned lo = static_cast<unsigned>(r), hi = static_cast<unsigned>(r >> 32);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const u64 d = diag[k];
+        resolve_lo(lo, hi, 1u << k, static_cast<unsigned>(d), static_cast<unsigned>(d >> 32));
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        resolve_hi(hi, 1u << k, static_cast<unsigned>(diag[32 + k] >> 32));
+      const u64 kept = ~(static_cast<u64>(hi) << 32 | lo);
+      const bool k0 = kept >> lane & 1, k1 = kept >> (lane + 32) & 1;
+      const int i0 = t * kTile + lane;
+      if (i0 < n) keep[i0] = k0;
+      if (i0 + 32 < n) keep[i0 + 32] = k1;
+      // the bulk's list of block t's kept rows, in order
+      const u64 below = (1ull << lane) - 1;
+      if (k0) kept_row[t & 1][__popcll(kept & below)] = static_cast<uint8_t>(lane);
+      if (k1) kept_row[t & 1][__popcll(kept & (below << 32 | 0xffffffffull))] =
+          static_cast<uint8_t>(lane + 32);
+      if (lane == 0) kept_count[t & 1] = __popcll(kept);
+      const u64 c = (k0 ? c0 : 0) | (k1 ? c1 : 0);
+      const unsigned c_hi = __reduce_or_sync(kFullWarp, static_cast<unsigned>(c >> 32));
+      carry = static_cast<u64>(c_hi) << 32 | __reduce_or_sync(kFullWarp, static_cast<unsigned>(c));
+    } else if (const int count = t + 1 < words ? kept_count[(t + 1) & 1] : 0) {
+      // the bulk: block t-1's kept rows' words t+1+w, w < span (word t came
+      // through the carry). Thread m takes word m mod span and, when span
+      // < 992, the kept rows g, g + groups, ... of g = m / span (several
+      // threads a word), else every kept row of words m, m + 992, ...; it
+      // ORs them kLoadsInFlight loads at a time and its word into remv
+      // once: one atomic a thread, not one a load
+      const uint8_t* rows_kept = kept_row[(t + 1) & 1];
+      const u64* rows = mask + static_cast<size_t>(t - 1) * kTile * stride + t + 1;
+      const int span = words - t - 1, m = tid - 32;
+      const int groups = span >= kBulkThreads ? 1 : kBulkThreads / span;
+      const int g = m / span;
+      for (int w = m % span; g < groups && w < span; w += kBulkThreads) {
+        u64 acc = 0;
+        for (int j0 = g; j0 < count; j0 += groups * kLoadsInFlight) {
+          u64 v[kLoadsInFlight];
+#pragma unroll
+          for (int q = 0; q < kLoadsInFlight; ++q) {
+            const int j = j0 + q * groups;
+            v[q] = j < count ? rows[static_cast<size_t>(rows_kept[j < count ? j : 0]) * stride + w]
+                             : 0;
+          }
+#pragma unroll
+          for (int q = 0; q < kLoadsInFlight; ++q) acc |= v[q];
+        }
+        if (acc) atomicOr(&remv[t + 1 + w], acc);
+      }
+    }
+    // block t's kept rows are published, block t-1's bulk is done, and
+    // every read of the lists of block t-1 has ended
+    __syncthreads();
+  }
+}
+
 int launch_mask(const float* boxes, const uint8_t* valid, u64* mask, int batch, int n,
                 float thr, cudaStream_t stream) {
   const int words = (n + kTile - 1) / kTile;
-  const dim3 grid(batch, words * (words + 1) / 2);
+  const long long tiles = static_cast<long long>(words) * (words + 1) / 2;
+  const long long y = tiles < kMaxGridYZ ? tiles : kMaxGridYZ, z = (tiles + y - 1) / y;
+  if (z > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(batch, static_cast<unsigned>(y), static_cast<unsigned>(z));
   nms_iou_mask_kernel<<<grid, kTile, 0, stream>>>(reinterpret_cast<const float4*>(boxes),
-                                                  valid, mask, n, 32 * words_per_lane(words),
-                                                  thr);
+                                                  valid, mask, n, mask_stride(words), thr);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_sweep(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
-                 int batch, int n, float thr, void* stream_ptr) {
-  if (batch <= 0 || n <= 0 || n > kMaxWords * kTile)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int err = launch_mask(boxes, valid, mask, batch, n, thr, stream)) return err;
-  const int wpl = words_per_lane((n + kTile - 1) / kTile), threads = kReduceWarps * 32;
-  if (wpl == 1)
-    nms_reduce_kernel<1><<<batch, threads, 0, stream>>>(mask, valid, keep, n);
-  else
-    nms_reduce_kernel<kMaxWordsPerLane><<<batch, threads, 0, stream>>>(mask, valid, keep, n);
+int launch_reduce(const u64* mask, const uint8_t* valid, uint8_t* keep, int batch, int n,
+                  cudaStream_t stream) {
+  const int words = (n + kTile - 1) / kTile;
+  if (words <= 32) {
+    nms_reduce_kernel<1><<<batch, kReduceThreads, 0, stream>>>(mask, valid, keep, n);
+  } else if (words <= kMaxWords) {
+    nms_reduce_kernel<kMaxWordsPerLane><<<batch, kReduceThreads, 0, stream>>>(mask, valid,
+                                                                              keep, n);
+  } else {
+    const size_t shared = static_cast<size_t>(words) * sizeof(u64);
+    constexpr size_t static_bytes = sizeof(u64) * kTile + 2 * kTile + 2 * sizeof(int);
+    if (shared + static_bytes > kSharedWithoutOptIn) {  // past 388,032 boxes
+      const cudaError_t err = cudaFuncSetAttribute(
+          nms_reduce_kernel_long, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shared));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    nms_reduce_kernel_long<<<batch, kLongThreads, shared, stream>>>(mask, valid, keep, n,
+                                                                    words);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The batch in chunks of `chunk` images, which share the mask scratch
+// (chunk images' worth); the stream orders each chunk's kernels after the
+// last chunk's.
+int launch_sweep(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
+                 int batch, int n, int chunk, float thr, void* stream_ptr) {
+  if (batch <= 0 || n <= 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  for (int b0 = 0; b0 < batch; b0 += chunk) {
+    const int imgs = batch - b0 < chunk ? batch - b0 : chunk;
+    const size_t off = static_cast<size_t>(b0) * n;
+    if (const int err = launch_mask(boxes + 4 * off, valid + off, mask, imgs, n, thr, stream))
+      return err;
+    if (const int err = launch_reduce(mask, valid + off, keep + off, imgs, n, stream))
+      return err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -319,34 +515,31 @@ int launch_sweep(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* m
 extern "C" {
 
 // boxes (batch, n, 4) f32 contiguous, 16-byte aligned; valid, keep (batch, n)
-// bytes (0/1); mask (batch, n, yst_nms_mask_stride(n)) 64-bit words of
-// scratch, which need no initialisation. Returns the cudaError_t of the
-// launches (0 on success).
+// bytes (0/1); mask (chunk, n, yst_nms_mask_stride(n)) 64-bit words of
+// scratch, which need no initialisation, for chunk images at a time.
+// Returns the cudaError_t of the launches (0 on success).
 int yst_nms_sweep_batched(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
-                          int batch, int n, float thr, void* stream) {
-  return launch_sweep(boxes, valid, keep, mask, batch, n, thr, stream);
+                          int batch, int n, int chunk, float thr, void* stream) {
+  return launch_sweep(boxes, valid, keep, mask, batch, n, chunk, thr, stream);
 }
 
 // boxes (n, 4), valid, keep (n,), mask (n, yst_nms_mask_stride(n)): one image.
 int yst_nms_sweep_single(const float* boxes, const uint8_t* valid, uint8_t* keep, u64* mask,
                          int n, float thr, void* stream) {
-  return launch_sweep(boxes, valid, keep, mask, 1, n, thr, stream);
+  return launch_sweep(boxes, valid, keep, mask, 1, n, 1, thr, stream);
 }
 
-// Phase 1 alone (for tests): writes the upper triangle of mask; valid may
-// be null.
+// Phase 1 alone (for tests): writes the upper triangle of mask (batch, n,
+// stride); valid may be null.
 int yst_nms_iou_mask(const float* boxes, const uint8_t* valid, u64* mask, int batch, int n,
                      float thr, void* stream) {
-  if (batch <= 0 || n <= 0 || n > kMaxWords * kTile)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_mask(boxes, valid, mask, batch, n, thr, static_cast<cudaStream_t>(stream));
 }
 
-// The mask's row stride in 64-bit words: ceil(n/64) rounded up to whole
-// lanes of the reduce (32 or 64), so that its loads take constant offsets.
-int yst_nms_mask_stride(int n) { return 32 * words_per_lane((n + kTile - 1) / kTile); }
-
-// Largest n: 64 pivots for each remv word the reduce holds.
-int yst_nms_max_n() { return kMaxWords * kTile; }
+// The mask's row stride in 64-bit words: ceil(n/64), rounded up to whole
+// lanes of the register reduce (32 or 64) up to n = 4096, so that its
+// loads take constant offsets.
+int yst_nms_mask_stride(int n) { return mask_stride((n + kTile - 1) / kTile); }
 
 }  // extern "C"

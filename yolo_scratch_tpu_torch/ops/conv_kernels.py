@@ -147,6 +147,17 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _NO_TILE = 1
 
 
+def _pad_channels(x, w1, b1, w2, b2):
+    """The inputs with C and Ch padded with zeros up to multiples of 16,
+    the widths the kernel's wgmma steps take. A zero channel of x meets
+    zero weights and a zero channel of h is silu(0 + 0) = 0, so each adds
+    exact zeros: the first C channels of the output are the unpadded
+    bottleneck's."""
+    pc, ph = -x.shape[-1] % 16, -w1.shape[-1] % 16
+    return (F.pad(x, (0, pc)), F.pad(w1, (0, ph, 0, pc)), F.pad(b1, (0, ph)),
+            F.pad(w2, (0, pc, 0, ph)), F.pad(b2, (0, pc)))
+
+
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     tensors = (x, w1, b1, w2, b2)
     if any(t.device != x.device for t in tensors):
@@ -158,12 +169,12 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
         raise TypeError(f"kernel takes f32 biases, got {b1.dtype}, {b2.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("kernel needs contiguous inputs (x NHWC, weights HWIO)")
-    if x.data_ptr() % 16 or w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("kernel needs x 16-byte and the weights 32-byte aligned")
     B, H, W, C = x.shape
     Ch = w1.shape[-1]
     if C % 16 or Ch % 16:
-        raise ValueError(f"kernel needs C and Ch in multiples of 16, got C={C}, Ch={Ch}")
+        return _launch(*_pad_channels(x, w1, b1, w2, b2))[..., :C].contiguous()
+    if x.data_ptr() % 16 or w1.data_ptr() % 32 or w2.data_ptr() % 32:
+        raise ValueError("kernel needs x 16-byte and the weights 32-byte aligned")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -190,7 +201,9 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
                      b2: torch.Tensor) -> torch.Tensor:
     """y = x + silu(conv2(silu(conv1(x) + b1)) + b2); convs 3x3 SAME stride 1,
     kernel #3. x (B, H, W, C) bf16/f32, w1 (3, 3, C, Ch), w2 (3, 3, Ch, C) in
-    x's type, b1 (Ch,), b2 (C,) f32 folded-BN biases -> (B, H, W, C)."""
+    x's type, b1 (Ch,), b2 (C,) f32 folded-BN biases -> (B, H, W, C). Any C
+    and Ch, as the Pallas kernel: widths that are not multiples of 16 run
+    padded with zero channels (:func:`_pad_channels`)."""
     _check_shapes(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return bottleneck_plain(x, w1, b1, w2, b2)

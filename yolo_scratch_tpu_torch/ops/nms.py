@@ -3,12 +3,10 @@
 :func:`nms` is the pairwise-matrix sweep (the JAX package's
 ``nms_impl="xla"`` path), independent of the CUDA kernels in
 ``ops/nms_kernels.py``. :func:`batched_nms_tiled` is the tiled sweep (the
-JAX package's ``nms_impl="tiled"``), plain PyTorch ops as the JAX one is
-XLA. Up to kernel #1's 4096 boxes the kernel is the fast route; past it
-(a ``pre_nms_topk`` above 4096, such as all 8400 anchors of a 640 image)
-the kernel refuses, and the tiled sweep is the batched route: N/128 tile
-steps against the pairwise sweep's N steps per image. Outputs are padded to
-``max_det`` with a validity mask so shapes stay static.
+JAX package's ``nms_impl="tiled"``, opt-in), plain PyTorch ops as the JAX
+one is XLA: N/128 tile steps against the pairwise sweep's N steps per
+image. Kernel #1 takes any N and is the fast route at every N. Outputs are
+padded to ``max_det`` with a validity mask so shapes stay static.
 """
 
 from __future__ import annotations

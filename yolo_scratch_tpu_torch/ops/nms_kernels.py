@@ -14,7 +14,10 @@ the NMS entry points built on them (port of ``ops/pallas_nms.py``).
 The kernels live in ``csrc/nms_sweep.cu`` (built with nvcc for sm_90a at
 first use, loaded with ctypes). Each sweep runs in two phases: an IoU
 bitmask over all pairs, one 64-bit word per (row, 64 columns), then a
-serial reduce over 64-pivot blocks. Each sweep is a ``torch.library``
+serial reduce over 64-pivot blocks. They take any N, as the Pallas sweep
+does: the mask's scratch grows as N^2/8 bytes an image, so a call sweeps
+its batch in chunks of images whose scratch stays under
+``_SCRATCH_CAP_BYTES`` (one image at least). Each sweep is a ``torch.library``
 custom op (``yst::nms_sweep_batched``, ``yst::nms_sweep``), so an exported
 program reaches the kernels too: on a CUDA tensor the op launches both
 kernels, on a CPU tensor it runs the plain PyTorch version of the same
@@ -55,13 +58,12 @@ def load_kernels() -> ctypes.CDLL:
         # every operation as the plain sweep and XLA do (exact keep masks)
         lib = ctypes.CDLL(str(build_cuda_library("yst_nms", [_SOURCE], ["-fmad=false"])))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yst_nms_sweep_batched.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yst_nms_sweep_batched.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr]
         lib.yst_nms_sweep_single.argtypes = [ptr, ptr, ptr, ptr, i32, f32, ptr]
         lib.yst_nms_iou_mask.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
         lib.yst_nms_mask_stride.argtypes = [i32]
-        lib.yst_nms_max_n.argtypes = []
         for fn in (lib.yst_nms_sweep_batched, lib.yst_nms_sweep_single, lib.yst_nms_iou_mask,
-                   lib.yst_nms_mask_stride, lib.yst_nms_max_n):
+                   lib.yst_nms_mask_stride):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -152,11 +154,9 @@ def nms_reduce_plain(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- kernels
 
-@functools.cache
-def _max_n() -> int:
-    """Largest N the reduce takes: 64 pivots for each ``remv`` word it holds
-    in registers."""
-    return load_kernels().yst_nms_max_n()
+#: bytes of IoU-mask scratch one sweep call holds at most (unless one
+#: image alone needs more): B=128 at N=8400 (1.14 GB) sweeps in two chunks
+_SCRATCH_CAP_BYTES = 1 << 30
 
 
 def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
@@ -170,10 +170,6 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
                          "want (..., N, 4) and (..., N)")
     if not (boxes.is_contiguous() and valid.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("kernel needs contiguous inputs and 16-byte aligned boxes")
-    n = boxes.shape[-2]
-    if n > _max_n():
-        raise ValueError(f"N={n} exceeds the {_max_n()} boxes of the {_max_n() // 64} remv "
-                         "words the reduce holds; nms_impl='tiled' takes any N")
 
 
 @functools.cache
@@ -181,14 +177,22 @@ def _mask_stride(n: int) -> int:
     return load_kernels().yst_nms_mask_stride(n)
 
 
-def _mask_words(boxes: torch.Tensor) -> torch.Tensor:
-    """Phase 1's scratch, (B, N, stride) int64 with W = ceil(N/64) <= stride
-    (the reduce's lanes, so that its loads take constant offsets), left
-    uninitialised: the mask kernel writes the upper triangle of the first W
-    words, the only words the reduce reads."""
-    n = boxes.shape[-2]
-    return torch.empty((*boxes.shape[:-2], n, _mask_stride(n)), dtype=torch.int64,
-                       device=boxes.device)
+def _chunk_images(batch: int, n: int, stride: int) -> int:
+    """Images one chunk of a sweep call takes: the fewest chunks whose mask
+    scratch, ``n * stride`` words an image, stays within
+    ``_SCRATCH_CAP_BYTES`` (one image at least), split evenly."""
+    fit = max(1, _SCRATCH_CAP_BYTES // (n * stride * 8))
+    chunks = -(-batch // fit)
+    return -(-batch // chunks)
+
+
+def _mask_words(images: int, n: int, device: torch.device) -> torch.Tensor:
+    """Phase 1's scratch for ``images`` images, (images, N, stride) int64
+    with W = ceil(N/64) <= stride (up to N = 4096 the reduce's lanes, so
+    that its loads take constant offsets), left uninitialised: the mask
+    kernel writes the upper triangle of the first W words, the only words
+    the reduce reads."""
+    return torch.empty((images, n, _mask_stride(n)), dtype=torch.int64, device=device)
 
 
 def _stream() -> ctypes.c_void_p:
@@ -198,15 +202,17 @@ def _stream() -> ctypes.c_void_p:
 def _launch(name: str, boxes: torch.Tensor, valid: torch.Tensor, thr: float) -> torch.Tensor:
     _check(boxes, valid)
     keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
-    mask = _mask_words(boxes)
+    n = boxes.shape[-2]
+    batch = boxes.shape[0] if name == "nms_sweep_batched" else 1
+    chunk = _chunk_images(batch, n, _mask_stride(n))
+    mask = _mask_words(chunk, n, boxes.device)
     lib = load_kernels()
     ptrs = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr())
     with torch.cuda.device(boxes.device):  # the runtime launches on the current device
         if name == "nms_sweep_batched":
-            err = lib.yst_nms_sweep_batched(*ptrs, boxes.shape[0], boxes.shape[1], thr,
-                                            _stream())
+            err = lib.yst_nms_sweep_batched(*ptrs, batch, n, chunk, thr, _stream())
         else:
-            err = lib.yst_nms_sweep_single(*ptrs, boxes.shape[0], thr, _stream())
+            err = lib.yst_nms_sweep_single(*ptrs, n, thr, _stream())
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
@@ -222,7 +228,7 @@ def _iou_mask(boxes: torch.Tensor, iou_threshold: float,
     scratch."""
     _check(boxes, torch.ones(boxes.shape[:-1], dtype=torch.bool, device=boxes.device)
            if valid is None else valid)
-    mask = torch.zeros_like(_mask_words(boxes))
+    mask = _mask_words(*boxes.shape[:2], boxes.device).zero_()
     with torch.cuda.device(boxes.device):
         err = load_kernels().yst_nms_iou_mask(
             boxes.data_ptr(), None if valid is None else valid.data_ptr(), mask.data_ptr(),
@@ -270,8 +276,9 @@ def _dispatch(name, boxes, valid, iou_threshold):
 def nms_sweep_batched(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                       iou_threshold: float = 0.45) -> torch.Tensor:
     """Batched greedy suppression, kernel #1 (the IoU mask over the whole
-    card, then a reduce of four warps per image): boxes (B, N, 4) xyxy with
-    each row score-descending, valid (B, N) -> keep (B, N) bool."""
+    card, then a reduce of one block per image), at any N: boxes (B, N, 4)
+    xyxy with each row score-descending, valid (B, N) -> keep (B, N) bool.
+    ``launches`` counts calls, however many chunks a call sweeps."""
     return _dispatch("nms_sweep_batched", boxes_sorted, valid_sorted, iou_threshold)
 
 
