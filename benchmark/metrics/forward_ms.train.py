@@ -1,0 +1,7 @@
+"""Train step phase ``forward``: device ms a step between the CUDA events
+recorded at ``TrainStep.on_phase``'s marks (the previous mark, or the
+step's start, to ``\"forward\"``), averaged over the traced window's steps."""
+
+
+def read(rec):
+    return (rec.get("phase_ms") or {}).get("forward")

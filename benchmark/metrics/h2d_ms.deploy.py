@@ -1,0 +1,8 @@
+"""H2D + normalize: device time of the host-to-device copies a batch makes
+(the uint8 batch from pageable host memory), ms per batch of the traced
+window, from the profiler's copy events."""
+
+
+def read(rec):
+    secs = rec["trace"].copies_s("HtoD")
+    return 1e3 * secs / rec["batches"] if secs > 0 and rec["batches"] else None
