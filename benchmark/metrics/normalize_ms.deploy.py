@@ -1,0 +1,13 @@
+"""Device ms a batch of the kernels launched inside the program's
+``yst.normalize`` span: the cast of the uint8 batch to the working dtype and
+the /255, in ``Predictor._forward``. Kernels are attributed by their launch
+(correlation id to runtime call), over the traced window; splits
+``forward_ms.deploy`` with ``model_ms.deploy``. Nothing where the program
+records no such span."""
+
+SPAN = "yst.normalize"
+
+
+def read(rec):
+    secs = rec["trace"].kernels_under(SPAN)
+    return 1e3 * secs / rec["batches"] if secs > 0 and rec["batches"] else None

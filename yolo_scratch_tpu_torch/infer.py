@@ -13,6 +13,11 @@ asynchronous, so host prep of the next batches overlaps it
 An int8 model (``nn/quant.py::quantize_for_deploy``) serves through the
 same Predictor: its quantized blocks run ``ops/int8_conv.py``.
 
+Under a profiler a batch records the spans ``yst.h2d``, ``yst.normalize``,
+``yst.model``, then ``ops/decode.py``'s ``yst.select``, ``yst.nms`` and
+``yst.pack``, and ``yst.pack`` again around ``pack_detections``
+(``utils/profiling.py`` lists them with the metrics that read them).
+
 ``Predictor.shard_over(mesh)`` serves batch-parallel over the devices of a
 one-process mesh (``parallel/mesh.py``): one replica a device, each running
 the whole per-image program on its contiguous rows, the outputs gathered in
@@ -58,6 +63,7 @@ from yolo_scratch_tpu_torch.nn.quant import (
 )
 from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.utils.device import resolve_device
+from yolo_scratch_tpu_torch.utils.profiling import annotate
 
 
 class Predictor(HostPredictor):
@@ -110,11 +116,14 @@ class Predictor(HostPredictor):
     # a value, so that torch.export traces it whole (export.py).
 
     def _forward(self, imgs) -> List[torch.Tensor]:
-        x = torch.as_tensor(imgs).to(self.device)
-        xx = x.to(self.dtype)
-        if x.dtype == torch.uint8:
-            xx = xx / 255.0
-        return self.model(xx)
+        with annotate("yst.h2d"):
+            x = torch.as_tensor(imgs).to(self.device)
+        with annotate("yst.normalize"):
+            xx = x.to(self.dtype)
+            if x.dtype == torch.uint8:
+                xx = xx / 255.0
+        with annotate("yst.model"):
+            return self.model(xx)
 
     def _postprocess(self, feats: Sequence[torch.Tensor]):
         cfg, m = self.cfg, self.model
@@ -128,7 +137,8 @@ class Predictor(HostPredictor):
                                           **common)
         # YOLOX decodes in f32: bf16 box coordinates quantise to ~2.5 px at
         # 640 (exp(wh) * stride is the sensitive part)
-        decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
+        with annotate("yst.select"):
+            decoded = yolox_eval_decode([f.float() for f in feats], m.nc, m.strides)
         return postprocess(decoded, **common)
 
     def _infer(self, imgs):
@@ -142,7 +152,8 @@ class Predictor(HostPredictor):
         if len(x) % n:
             raise ValueError(f"batch {len(x)} not divisible by mesh size {n}")
         parts = [r._infer(shard) for r, shard in zip(self.replicas, x.chunk(n))]
-        return tuple(torch.cat([p[i].to(self.device) for p in parts]) for i in range(4))
+        with annotate("yst.pack"):
+            return tuple(torch.cat([p[i].to(self.device) for p in parts]) for i in range(4))
 
     @torch.inference_mode()
     def forward_feats(self, imgs) -> List[torch.Tensor]:
@@ -153,13 +164,17 @@ class Predictor(HostPredictor):
     @torch.inference_mode()
     def postprocess_feats(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Raw head maps -> (B, max_det, 7) packed detections."""
-        return pack_detections(*self._postprocess(feats))
+        dets = self._postprocess(feats)
+        with annotate("yst.pack"):
+            return pack_detections(*dets)
 
     @torch.inference_mode()
     def predict_batch(self, imgs) -> torch.Tensor:
         """(B, S, S, C) images -> (B, max_det, 7) packed detections on the
         device (asynchronous: the caller's fetch synchronises)."""
-        return pack_detections(*self._infer(imgs))
+        dets = self._infer(imgs)
+        with annotate("yst.pack"):
+            return pack_detections(*dets)
 
 
 def load_deploy_model(

@@ -12,6 +12,12 @@ runs ``ops/nms.py::nms`` (the JAX package's ``"xla"`` path); ``"tiled"``
 runs ``ops/nms.py::batched_nms_tiled`` (PyTorch ops, the JAX package's
 ``"tiled"``).
 
+Spans (``utils/profiling.py``, recorded only under a profiler): ``yst.select``
+around candidate selection and decode, ``yst.nms`` around the sweep, the
+class offset and the ``max_det`` cap, ``yst.pack`` around the gather and
+normalisation; on the kernel path ``yst.count`` after ``yst.nms`` around the
+``nms.pairs_needed`` counter.
+
 The JAX package selects rows with one-hot contractions (TPU gathers are
 slow); they are exact, so plain gathers give the same values here. Every
 top-k orders as XLA's ``top_k`` does: the floats' total order (-0.0 below
@@ -33,10 +39,13 @@ from yolo_scratch_tpu_torch.ops.nms import (
 from yolo_scratch_tpu_torch.ops.nms_kernels import (
     _cap,
     _class_offset,
-    nms_kernel_batched,
     nms_sweep,
+    nms_sweep_batched,
+    pairs_needed,
 )
 from yolo_scratch_tpu_torch.nn.modules import dfl_expectation
+from yolo_scratch_tpu_torch.utils import profiling
+from yolo_scratch_tpu_torch.utils.profiling import annotate
 
 NMS_IMPLS = ("kernel", "pairwise", "tiled")
 LANES = 128  # the block width of the blocked top-k
@@ -99,27 +108,38 @@ def _check_impl(nms_impl: str) -> None:
 
 
 def _keep_batched(boxes, scores, valid, labels, *, iou_threshold, max_det, class_aware,
-                  nms_impl):
-    """Keep mask (B, K) over score-sorted candidates."""
-    if nms_impl == "kernel":
-        return nms_kernel_batched(boxes, scores, valid, iou_threshold=iou_threshold,
-                                  max_det=max_det, class_ids=labels,
-                                  class_aware=class_aware, presorted=True)
-    if nms_impl == "tiled":
-        return batched_nms_tiled(boxes, scores, valid, class_ids=labels,
-                                 iou_threshold=iou_threshold, max_det=max_det,
-                                 class_aware=class_aware)
-    return torch.stack([
-        nms(b, s, iou_threshold=iou_threshold, max_det=max_det, valid=v, class_ids=c,
-            class_aware=class_aware, presorted=True)
-        for b, s, v, c in zip(boxes, scores, valid, labels)
-    ])
+                  nms_impl, single: bool = False):
+    """Keep mask (B, K) over score-sorted candidates, at most ``max_det``
+    an image. The kernel path sweeps on kernel #1, or on kernel #2 where
+    ``single`` (B = 1)."""
+    with annotate("yst.nms"):
+        if nms_impl == "tiled":
+            return batched_nms_tiled(boxes, scores, valid, class_ids=labels,
+                                     iou_threshold=iou_threshold, max_det=max_det,
+                                     class_aware=class_aware)
+        if nms_impl != "kernel":
+            return torch.stack([
+                nms(b, s, iou_threshold=iou_threshold, max_det=max_det, valid=v, class_ids=c,
+                    class_aware=class_aware, presorted=True)
+                for b, s, v, c in zip(boxes, scores, valid, labels)
+            ])
+        nms_boxes = _class_offset(boxes, labels) if class_aware else boxes
+        if single:
+            swept = nms_sweep(nms_boxes[0], valid[0], iou_threshold)[None]
+        else:
+            swept = nms_sweep_batched(nms_boxes, valid, iou_threshold)
+        keep = _cap(swept, max_det)
+    if profiling.enabled():
+        with annotate("yst.count"):
+            profiling.count("nms.pairs_needed", pairs_needed(swept, valid))
+    return keep
 
 
 def _finish(boxes, scores, labels, keep, max_det: int, img_size: int):
-    out_b, out_s, out_l, out_v = gather_topk_detections_batched(
-        boxes, scores, labels, keep, max_det=max_det)
-    return (out_b / img_size).clamp(0.0, 1.0), out_s, out_l, out_v
+    with annotate("yst.pack"):
+        out_b, out_s, out_l, out_v = gather_topk_detections_batched(
+            boxes, scores, labels, keep, max_det=max_det)
+        return (out_b / img_size).clamp(0.0, 1.0), out_s, out_l, out_v
 
 
 def postprocess(
@@ -137,13 +157,11 @@ def postprocess(
     With ``nms_impl="kernel"`` a batch of one goes through the
     single-image kernel (#2), larger batches through the batched one (#1)."""
     _check_impl(nms_impl)
-    boxes, scores, labels, valid = _prefilter_batched(decoded, conf_threshold, pre_nms_topk)
-    if nms_impl == "kernel" and boxes.shape[0] == 1:
-        nms_boxes = _class_offset(boxes, labels) if class_aware else boxes
-        keep = _cap(nms_sweep(nms_boxes[0], valid[0], iou_threshold)[None], max_det)
-    else:
-        keep = _keep_batched(boxes, scores, valid, labels, iou_threshold=iou_threshold,
-                             max_det=max_det, class_aware=class_aware, nms_impl=nms_impl)
+    with annotate("yst.select"):
+        boxes, scores, labels, valid = _prefilter_batched(decoded, conf_threshold, pre_nms_topk)
+    keep = _keep_batched(boxes, scores, valid, labels, iou_threshold=iou_threshold,
+                         max_det=max_det, class_aware=class_aware, nms_impl=nms_impl,
+                         single=boxes.shape[0] == 1)
     return _finish(boxes, scores, labels, keep, max_det, img_size)
 
 
@@ -203,11 +221,12 @@ def postprocess_from_feats(
     f32 scores collide (|logit| >~ 14), which this path orders by the finer
     logit. The batched NMS runs at every batch size."""
     _check_impl(nms_impl)
-    boxes, scores, labels, valid, conf_ok = select_candidates(
-        feats, nc, strides, reg_max, conf_threshold, pre_nms_topk, blocked_topk)
+    with annotate("yst.select"):
+        boxes, scores, labels, valid, conf_ok = select_candidates(
+            feats, nc, strides, reg_max, conf_threshold, pre_nms_topk, blocked_topk)
+        if with_cand_count:  # (B,) above-conf candidate count
+            cand = conf_ok.sum(dim=-1, dtype=torch.int32)
     keep = _keep_batched(boxes, scores, valid, labels, iou_threshold=iou_threshold,
                          max_det=max_det, class_aware=class_aware, nms_impl=nms_impl)
     out = _finish(boxes, scores, labels, keep, max_det, img_size)
-    if with_cand_count:  # (B,) above-conf candidate count
-        return (*out, conf_ok.sum(dim=-1, dtype=torch.int32))
-    return out
+    return (*out, cand) if with_cand_count else out

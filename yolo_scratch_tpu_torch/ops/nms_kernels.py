@@ -25,6 +25,10 @@ sweep; any other device raises. ``launches`` counts the op calls that
 launched the kernels, eager or exported. :func:`nms_iou_mask_plain` and
 :func:`nms_reduce_plain` are the two phases in plain PyTorch, in the
 kernels' word layout.
+
+While a profiler records, each sweep adds the pairs it tests, N(N-1)/2 an
+image, to the counter ``nms.pairs_swept`` (``utils/profiling.py``), and
+:func:`pairs_needed` gives the tests greedy NMS needs of them.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import functools
 import numpy as np
 import torch
 
+from yolo_scratch_tpu_torch.utils import profiling
 from yolo_scratch_tpu_torch.utils.build import PKG, build_cuda_library
 
 _SOURCE = PKG / "csrc" / "nms_sweep.cu"
@@ -152,6 +157,19 @@ def nms_reduce_plain(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return keep
 
 
+def pairs_needed(keep: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """IoU tests greedy NMS needs: each kept pivot against every valid box
+    after it. ``keep`` (the sweep's, before any ``max_det`` cap), ``valid``
+    (B, N) bool in sweep order -> 0-d int64 on their device."""
+    seen = valid.cumsum(-1)  # valid boxes up to i; those after i are the total less it
+    return ((seen[..., -1:] - seen) * keep).sum()
+
+
+def _count_swept(images: int, n: int) -> None:
+    """The pairs i < j a sweep of ``images`` images of ``n`` boxes tests."""
+    profiling.count("nms.pairs_swept", images * n * (n - 1) // 2)
+
+
 # ------------------------------------------------------------------- kernels
 
 #: bytes of IoU-mask scratch one sweep call holds at most (unless one
@@ -216,6 +234,7 @@ def _launch(name: str, boxes: torch.Tensor, valid: torch.Tensor, thr: float) -> 
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
+    _count_swept(batch, n)  # every chunk's images, a mask over all pairs each
     return keep
 
 
@@ -255,7 +274,17 @@ def _sweep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) ->
     return _launch("nms_sweep", boxes, valid, iou_threshold)
 
 
-for _op, _plain in ((_sweep_batched_op, nms_sweep_batched_plain), (_sweep_op, nms_sweep_plain)):
+def _sweep_batched_cpu(boxes, valid, iou_threshold):
+    _count_swept(*valid.shape)
+    return nms_sweep_batched_plain(boxes, valid, iou_threshold)
+
+
+def _sweep_cpu(boxes, valid, iou_threshold):
+    _count_swept(1, valid.shape[0])
+    return nms_sweep_plain(boxes, valid, iou_threshold)
+
+
+for _op, _plain in ((_sweep_batched_op, _sweep_batched_cpu), (_sweep_op, _sweep_cpu)):
     _op.register_kernel("cpu")(_plain)
     _op.register_fake(lambda boxes, valid, iou_threshold: torch.empty_like(valid))
 del _op, _plain

@@ -34,7 +34,7 @@ from yolo_scratch_tpu_torch.bench import common as C
 from yolo_scratch_tpu_torch.infer import Predictor
 from yolo_scratch_tpu_torch.ops.decode import postprocess_from_feats
 from yolo_scratch_tpu_torch.utils.device import resolve_device
-from yolo_scratch_tpu_torch.utils.profiling import export_trace, trace_dir
+from yolo_scratch_tpu_torch.utils.profiling import SPAN_PREFIX, export_trace, trace_dir
 
 RANGE = "profile_forward"
 COPIES = ("Memcpy", "Memset")  # device activities that are not kernels
@@ -67,16 +67,20 @@ def build(batch: int, imgsz: int, full: bool, dev: torch.device, conf: float = 0
 def device_rows(prof, dev: torch.device) -> list:
     """``(name, self us, count)`` of the trace's kernels on the card (copies,
     the profiler's own buffers and the ranges' spans on the card's timeline
-    left out), or of its CPU ops on the CPU (the ranges left out)."""
+    left out), or of its CPU ops on the CPU (the ranges left out: this
+    script's and the program's ``yst.*`` spans)."""
     from torch.autograd import DeviceType
+
+    def is_range(key):
+        return key == RANGE or key.startswith(SPAN_PREFIX)
 
     if dev.type == "cuda":
         rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
-                and not e.key.startswith(COPIES) and e.key != RANGE]
+                and not e.key.startswith(COPIES) and not is_range(e.key)]
     else:
         rows = [(e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
-                if e.key != RANGE]
+                if not is_range(e.key)]
     return sorted(rows, key=lambda r: -r[1])
 
 

@@ -3,57 +3,29 @@
     python -m yolo_scratch_tpu_torch.profile_predictor [--batch 32] [--imgsz 640] [--out DIR]
 
 For each row (crater ch=1/nc=5, COCO ch=3/nc=80; YOLO11n, seeded init,
-bf16, BN folded) it times the phases of ``Predictor.predict_batch`` one by
-one with CUDA events (H2D copy + normalise, forward, select-then-decode,
-NMS kernel, gather + pack), times whole batches on the host clock, and
-traces whole batches with ``torch.profiler`` for the device time per batch,
-its share of the wall time and the top kernels. Needs a CUDA GPU.
+bf16, BN folded) it times whole batches on the host clock, and traces
+whole ``Predictor.predict_batch`` calls with ``torch.profiler`` for the
+device time per batch, its share of the wall time, the top kernels, and
+the device ms per batch under each of the program's spans (``yst.h2d``,
+``yst.normalize``, ``yst.model``, ``yst.select``, ``yst.nms``,
+``yst.pack``; ``utils/profiling.py``). Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig, load_deploy_model, pack_detections
+from yolo_scratch_tpu_torch.infer import Predictor, PredictorConfig, load_deploy_model
 from yolo_scratch_tpu_torch.models.builder import CONFIGS
-from yolo_scratch_tpu_torch.ops.decode import _finish, select_candidates
-from yolo_scratch_tpu_torch.ops.nms_kernels import nms_kernel_batched
+from yolo_scratch_tpu_torch.utils.profiling import SPAN_PREFIX
 
 ROWS = [("crater", "yolo11_crater.json", 1, 5), ("coco", "yolo11_coco.json", 3, 80)]
-
-
-def phase_times(pred: Predictor, x: np.ndarray, reps: int = 10) -> dict:
-    """Median device ms of each phase of predict_batch, run in sequence."""
-    cfg, m = pred.cfg, pred.model
-    names = ["h2d_normalise", "forward", "select_decode", "nms", "gather_pack"]
-    samples = {n: [] for n in names}
-    for _ in range(reps + 1):  # the first pass warms up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        with torch.inference_mode():
-            ev[0].record()
-            xx = torch.as_tensor(x).to(pred.device).to(pred.dtype) / 255.0
-            ev[1].record()
-            feats = m(xx)
-            ev[2].record()
-            boxes, scores, labels, valid, _ = select_candidates(
-                feats, m.nc, m.strides, m.reg_max, cfg.conf_threshold, cfg.pre_nms_topk)
-            ev[3].record()
-            keep = nms_kernel_batched(boxes, scores, valid, cfg.iou_threshold, cfg.max_det,
-                                      labels, cfg.class_aware_nms, presorted=True)
-            ev[4].record()
-            pack_detections(*_finish(boxes, scores, labels, keep, cfg.max_det, cfg.img_size))
-            ev[5].record()
-        torch.cuda.synchronize()
-        for i, n in enumerate(names):
-            samples[n].append(ev[i].elapsed_time(ev[i + 1]))
-    return {n: statistics.median(v[1:]) for n, v in samples.items()}
 
 
 def wall_ms(pred: Predictor, x: np.ndarray, batches: int = 20) -> float:
@@ -69,8 +41,9 @@ def wall_ms(pred: Predictor, x: np.ndarray, batches: int = 20) -> float:
 
 def trace(pred: Predictor, x: np.ndarray, out_dir: Path | None, tag: str, batches: int = 5):
     """Device ms per predict_batch call (kernels and copies, from a
-    ``torch.profiler`` trace of ``batches`` calls) and the top device
-    activities by time."""
+    ``torch.profiler`` trace of ``batches`` calls), the top device
+    activities by time, and the device ms per call launched under each of
+    the program's ``yst.*`` spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,10 +54,16 @@ def trace(pred: Predictor, x: np.ndarray, out_dir: Path | None, tag: str, batche
             pred.predict_batch(x)
         torch.cuda.synchronize()
     # device-side rows only (kernels, memcpys); the CPU op rows repeat their
-    # children's device time, and CUPTI's own buffer requests are not work
+    # children's device time, and CUPTI's own buffer requests and the spans'
+    # rows on the card's timeline are not work
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key]
+           if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
+           and not e.key.startswith(SPAN_PREFIX)]
     dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    spans: dict = {}
+    for e in prof.events():
+        if e.name.startswith(SPAN_PREFIX) and e.device_type == DeviceType.CPU:
+            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total / 1e3 / batches
     if out_dir is not None:
         prof.export_chrome_trace(str(out_dir / f"trace_{tag}.json"))
     return {
@@ -92,6 +71,7 @@ def trace(pred: Predictor, x: np.ndarray, out_dir: Path | None, tag: str, batche
         "device_ops_per_batch": sum(e.count for e in dev) // batches,
         "top": [(e.key[:120], e.self_device_time_total / 1e3 / batches, e.count // batches)
                 for e in dev[:12]],
+        "spans_ms": spans,
     }
 
 
@@ -116,8 +96,7 @@ def main(argv=None) -> int:
         pred = Predictor(model, cfg, device="cuda")
         x = np.random.RandomState(ch).randint(0, 256, (args.batch, args.imgsz, args.imgsz, ch),
                                               dtype=np.uint8)
-        row = {"phases_ms": phase_times(pred, x), "wall_ms_per_batch": wall_ms(pred, x),
-               **trace(pred, x, out_dir, name)}
+        row = {"wall_ms_per_batch": wall_ms(pred, x), **trace(pred, x, out_dir, name)}
         row["device_busy_share"] = row["device_ms_per_batch"] / row["wall_ms_per_batch"]
         report["rows"][name] = row
         print(name, json.dumps(row), flush=True)

@@ -45,6 +45,7 @@ from yolo_scratch_tpu_torch.parallel.collectives import (
     broadcast_flat,
 )
 from yolo_scratch_tpu_torch.train.state import ema_state_dict
+from yolo_scratch_tpu_torch.utils.profiling import annotate
 
 
 def v8_loss_adapter(loss_cfg: DetectionLossConfig):
@@ -143,11 +144,13 @@ class TrainStep:
     averaged over the ranks; the BN running statistics averaged
     (``sync_bn_stats``) or rank 0's.
 
-    ``on_phase``, when set, is called with each phase's name as the phase
-    ends: ``"h2d"``, ``"augment"`` when the call augments, then
-    ``"forward"``, ``"loss"`` and ``"backward"`` for each microbatch, then
-    ``"all_reduce"`` on a mesh, then ``"clip_adamw_ema"``. A profiler
-    records a CUDA event there to time the step's own phases."""
+    The step runs in phases, each inside :meth:`_phase`: ``"h2d"``,
+    ``"augment"`` when the call augments, then ``"forward"``, ``"loss"``
+    and ``"backward"`` for each microbatch, then ``"all_reduce"`` on a
+    mesh, then ``"clip_adamw_ema"``. Under a profiler each is a span
+    ``yst.train.<phase>`` (``utils/profiling.py``). ``on_phase``, when
+    set, is called with the phase's name as the phase ends, in that order;
+    a profiler records a CUDA event there to time the step's own phases."""
 
     on_phase: Optional[Callable[[str], None]] = None
 
@@ -196,19 +199,24 @@ class TrainStep:
             feats = [f.float() for f in feats]
         return feats
 
-    def _mark(self, phase: str) -> None:
+    @contextlib.contextmanager
+    def _phase(self, name: str) -> Iterator[None]:
+        """One phase of the step: the span ``yst.train.<name>`` around it,
+        then ``on_phase(name)`` as it ends."""
+        with annotate(f"yst.train.{name}"):
+            yield
         if self.on_phase is not None:
-            self.on_phase(phase)
+            self.on_phase(name)
 
     def _micro(self, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Forward, loss and backward of one (micro)batch; the gradients
         add into ``.grad``."""
-        feats = self.forward(batch["img"])
-        self._mark("forward")
-        total, metrics = self.loss_fn(feats, batch, **self.loss_kwargs)
-        self._mark("loss")
-        total.backward()
-        self._mark("backward")
+        with self._phase("forward"):
+            feats = self.forward(batch["img"])
+        with self._phase("loss"):
+            total, metrics = self.loss_fn(feats, batch, **self.loss_kwargs)
+        with self._phase("backward"):
+            total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def grads(self, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
@@ -261,20 +269,20 @@ class TrainStep:
         the forward (``data/augment.py::augment_batch``); ``rows`` then
         takes this rank's rows of the augmented global batch."""
         device = next(self.model.parameters()).device
-        b = batch_to_device(batch, device)
-        self._mark("h2d")
+        with self._phase("h2d"):
+            b = batch_to_device(batch, device)
         if augment is not None:
-            b = augment(b)
-            self._mark("augment")
+            with self._phase("augment"):
+                b = augment(b)
         if rows is not None:
             b = {k: v[rows] for k, v in b.items()}
         with precision_scope(self.precision):
             loss, metrics = self.grads(b)
             if self.mesh is not None:
-                loss, metrics = self.reduce_across(loss, metrics)
-                self._mark("all_reduce")
-            state.apply_gradients([p.grad for p in self.model.parameters()])
-        self._mark("clip_adamw_ema")
+                with self._phase("all_reduce"):
+                    loss, metrics = self.reduce_across(loss, metrics)
+            with self._phase("clip_adamw_ema"):
+                state.apply_gradients([p.grad for p in self.model.parameters()])
         return state, {"loss": loss, **metrics}
 
 

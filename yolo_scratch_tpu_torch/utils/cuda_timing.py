@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from yolo_scratch_tpu_torch.utils.profiling import SPAN_PREFIX
+
 
 # A process that opens many profiler sessions back to back now and then gets
 # one whose trace lost its device events; a fresh session is clean again.
@@ -34,7 +36,8 @@ def _trace(fn: Callable[[], object], reps: int):
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key]
+            if e.device_type == DeviceType.CUDA and "Activity Buffer" not in e.key
+            and not e.key.startswith(SPAN_PREFIX)]
 
 
 def call_ms(fn: Callable[[], object], kernels: tuple[str, ...],

@@ -4,11 +4,47 @@
 the card where there is one) and writes the trace into ``logdir`` in
 TensorBoard's profiler format (``*.pt.trace.json``, also readable by
 Perfetto); ``annotate(name)`` marks a sub-region
-(``torch.profiler.record_function``); ``time_fn`` gives the wall time of a
+(``torch.profiler.record_function``) while a profiler records, and is a
+shared null context otherwise; ``time_fn`` gives the wall time of a
 call after warm-up, synchronised: CUDA events where the output lies on a
 card, ``time.perf_counter`` on the CPU. ``trace_dir`` and ``export_trace`` are the
 profilers' (``profile_forward``, ``profile_train``): a Chrome trace with
 what it ran and where, which ``parse_trace`` and ``train_roofline`` read.
+
+The program's spans, each with the benchmark's metric that reads it
+(``benchmark/metrics/<metric>.py``). A span wraps exactly the code that
+launches its layer's kernels, so a trace reader attributes every kernel (by
+its launch, correlation id to runtime call) to one span:
+
+* ``yst.h2d``: ``Predictor._forward``'s pageable copy; ``h2d_host_ms.deploy``;
+* ``yst.normalize``: its cast and /255; ``normalize_ms.deploy``;
+* ``yst.model``: the network; ``model_ms.deploy``;
+* ``yst.select``: candidate selection and decode (``ops/decode.py``; YOLOX's
+  ``yolox_eval_decode`` in ``Predictor``); ``select_ms.deploy``;
+* ``yst.nms``: kernel #1 or #2, the class offset and the ``max_det`` cap
+  (``ops/decode.py``); ``nms_ms.deploy``;
+* ``yst.pack``: the gather and normalisation (``ops/decode.py::_finish``) and
+  ``Predictor``'s ``pack_detections``; ``pack_ms.deploy``;
+* ``yst.count``: the NMS counter's kernels, after ``yst.nms``; read by no
+  metric, so that no layer's time holds them;
+* ``yst.train.<phase>`` (``TrainStep._phase``) for ``h2d``, ``augment``,
+  ``forward``, ``loss``, ``backward``, ``all_reduce`` and ``clip_adamw_ema``:
+  ``forward_kernel_ms.train``, ``loss_kernel_ms.train``,
+  ``backward_kernel_ms.train``, ``update_kernel_ms.train`` (of
+  ``clip_adamw_ema``); the ``yst.train.h2d`` intervals count the steps.
+
+The program's counters (:func:`count`, read by :func:`counters` once after
+a traced window; ``nms_needed_pct.deploy`` reads both):
+
+* ``nms.pairs_needed``: the IoU tests greedy NMS needs, each kept pivot
+  (the sweep's keep before the ``max_det`` cap) against every valid box
+  after it, summed over the images the kernel path swept (``ops/decode.py``);
+* ``nms.pairs_swept``: the pairs the sweeps test, N(N-1)/2 an image, from
+  the launch geometry (``ops/nms_kernels.py``).
+
+With no profiler recording, ``annotate`` and ``enabled`` are one flag test
+each and reach no dispatcher; callers guard a counter's computation with
+``if enabled():`` so that nothing is launched for it.
 """
 
 from __future__ import annotations
@@ -17,11 +53,13 @@ import contextlib
 import json
 import os
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from yolo_scratch_tpu_torch.utils.guards import tensor_leaves
 
@@ -59,9 +97,63 @@ def export_trace(prof, out_dir: str | os.PathLike, tag: str, **metadata) -> Path
     return path
 
 
+#: the prefix of every span the program records; a profiler's table shows a
+#: span as a row of its own (on the card's timeline too): not a kernel
+SPAN_PREFIX = "yst."
+_NULL = contextlib.nullcontext()
+
+
+def enabled() -> bool:
+    """Whether a profiler records (and nothing compiles): the one test that
+    gates every span and counter."""
+    return _autograd_profiler._is_profiler_enabled and not torch.compiler.is_compiling()
+
+
 def annotate(name: str):
-    """Named sub-region inside a trace (a context manager)."""
-    return torch.profiler.record_function(name)
+    """Named sub-region inside a trace (a context manager): a
+    ``record_function`` while a profiler records, else one shared null
+    context."""
+    return torch.profiler.record_function(name) if enabled() else _NULL
+
+
+_host_counts: Dict[str, int] = {}
+_device_counts: Dict[str, torch.Tensor] = {}
+_counts_lock = threading.Lock()  # a daemon's worker threads may count at once
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (an int, or a 0-d integer tensor on any device) to the
+    counter ``name``, while a profiler records; nothing otherwise. A
+    tensor's total stays on its device, read by :func:`counters`."""
+    if not enabled():
+        return
+    with _counts_lock:
+        if isinstance(value, torch.Tensor):
+            v = value.detach().to(torch.int64)
+            acc = _device_counts.get(name)
+            _device_counts[name] = v.clone() if acc is None else acc + v.to(acc.device)
+        else:
+            _host_counts[name] = _host_counts.get(name, 0) + int(value)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total: ``{name: int}``, after one sync per device."""
+    with _counts_lock:
+        out = dict(_host_counts)
+        device = dict(_device_counts)
+    by_device: Dict[torch.device, list] = {}
+    for name, t in device.items():
+        by_device.setdefault(t.device, []).append(name)
+    for names in by_device.values():
+        for name, v in zip(names, torch.stack([device[n] for n in names]).tolist()):
+            out[name] = out.get(name, 0) + int(v)
+    return out
+
+
+def reset_counters() -> None:
+    with _counts_lock:
+        _host_counts.clear()
+        _device_counts.clear()
 
 
 def _cuda_device(out: Any):
