@@ -13,6 +13,13 @@ asynchronous, so host prep of the next batches overlaps it
 An int8 model (``nn/quant.py::quantize_for_deploy``) serves through the
 same Predictor: its quantized blocks run ``ops/int8_conv.py``.
 
+A host batch (numpy or a CPU tensor) reaches a card without a host wait:
+``PinnedRing`` copies it into one of ``inflight + 1`` pinned buffers and
+enqueues the copy on a side stream, so the host never waits for the stream
+and the copy runs beside the device work queued before it. A batch already
+on the device, a CPU Predictor and ``shard_over``'s replicas take a plain
+``.to(device)``.
+
 Under a profiler a batch records the spans ``yst.h2d``, ``yst.normalize``,
 ``yst.model``, then ``ops/decode.py``'s ``yst.select``, ``yst.nms`` and
 ``yst.pack``, and ``yst.pack`` again around ``pack_detections``
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import copy
 import json
+import threading
 import time
 from pathlib import Path
 from typing import List, Sequence
@@ -63,7 +71,57 @@ from yolo_scratch_tpu_torch.nn.quant import (
 )
 from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 from yolo_scratch_tpu_torch.utils.device import resolve_device
-from yolo_scratch_tpu_torch.utils.profiling import annotate
+from yolo_scratch_tpu_torch.utils.profiling import annotate, count
+
+
+class PinnedRing:
+    """Host batches to one card with no stream sync: ``slots`` pinned host
+    buffers used in turn (allocated at the first batch and again only when
+    the shape or dtype changes), each copied on one side stream.
+
+    A batch waits for its slot's previous copy (counted as
+    ``h2d.slot_waits``; with more slots than batches in flight it has
+    ended), is copied into the slot on the host, so the caller may reuse its
+    array at once, and is enqueued as a non-blocking copy into a fresh
+    device tensor on the side stream; the current stream waits on the
+    copy's event. The device tensor is allocated on the side stream and
+    marked used by the current one (``record_stream``), so the caching
+    allocator hands its block out again only after the reader's work. A
+    lock keeps threads that share a Predictor off each other's slots."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.done = [torch.cuda.Event() for _ in range(slots)]
+        self.bufs: List[torch.Tensor] = []
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def put(self, src: torch.Tensor) -> torch.Tensor:
+        """``src`` (host) -> the same values on the card, ordered before the
+        current stream's next work."""
+        with self.lock:
+            if (not self.bufs or self.bufs[0].shape != src.shape
+                    or self.bufs[0].dtype != src.dtype):
+                # normal tensors, so a caller outside inference mode may write them
+                with torch.inference_mode(False):
+                    self.bufs = [torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                                 for _ in self.done]
+            i, self.next = self.next, (self.next + 1) % len(self.done)
+            done = self.done[i]
+            if not done.query():
+                count("h2d.slot_waits", 1)
+                done.synchronize()
+            self.bufs[i].copy_(src)
+            with torch.cuda.stream(self.stream):
+                dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+                dst.copy_(self.bufs[i], non_blocking=True)
+                done.record(self.stream)
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            dst.record_stream(current)
+        count("h2d.staged", 1)
+        return dst
 
 
 class Predictor(HostPredictor):
@@ -89,6 +147,8 @@ class Predictor(HostPredictor):
         self.in_ch = (model.in_ch if self.is_dfl
                       else yolox_arch_from_params(model.state_dict())[0])
         self.replicas: List["Predictor"] | None = None  # set by shard_over
+        self._ring = (PinnedRing(self.device, max(1, config.inflight) + 1)
+                      if self.device.type == "cuda" else None)
 
     def shard_over(self, mesh) -> "Predictor":
         """Batch-parallel serving over ``mesh.devices`` (in place; returns
@@ -108,8 +168,10 @@ class Predictor(HostPredictor):
             r = copy.copy(self)
             r.device = torch.device(dev)
             r.model = copy.deepcopy(self.model).to(r.device)
+            r._ring = None
             replicas.append(r)
         self.replicas, self.device, self.model = replicas, replicas[0].device, replicas[0].model
+        self._ring = None
         return self
 
     # The device program, in pieces that hold no host sync and no branch on
@@ -117,7 +179,9 @@ class Predictor(HostPredictor):
 
     def _forward(self, imgs) -> List[torch.Tensor]:
         with annotate("yst.h2d"):
-            x = torch.as_tensor(imgs).to(self.device)
+            x = torch.as_tensor(imgs)
+            x = (self._ring.put(x) if self._ring is not None and x.device.type == "cpu"
+                 else x.to(self.device))
         with annotate("yst.normalize"):
             xx = x.to(self.dtype)
             if x.dtype == torch.uint8:

@@ -4,7 +4,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 
 
@@ -15,16 +14,19 @@ def make_anchors(
     device: str | torch.device = "cpu",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(anchor_points (A, 2), stride_tensor (A, 1)) from per-scale
-    (feat_h, feat_w, stride); row-major y-outer, x-inner, x first."""
+    (feat_h, feat_w, stride); row-major y-outer, x-inner, x first.
+
+    Built on ``device`` in f32, then cast: no host array and no copy, so a
+    caller on the card never waits for its stream to drain. Small integers
+    plus the offset are exact in f32, as in the JAX package's numpy grid."""
     pts, strides = [], []
     for h, w, s in hw_strides:
-        sx = np.arange(w, dtype=np.float32) + grid_cell_offset
-        sy = np.arange(h, dtype=np.float32) + grid_cell_offset
-        gy, gx = np.meshgrid(sy, sx, indexing="ij")
-        pts.append(np.stack([gx, gy], axis=-1).reshape(-1, 2))
-        strides.append(np.full((h * w, 1), s, dtype=np.float32))
-    return (torch.as_tensor(np.concatenate(pts), dtype=dtype, device=device),
-            torch.as_tensor(np.concatenate(strides), dtype=dtype, device=device))
+        sx = torch.arange(w, dtype=torch.float32, device=device) + grid_cell_offset
+        sy = torch.arange(h, dtype=torch.float32, device=device) + grid_cell_offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        pts.append(torch.stack([gx, gy], -1).reshape(-1, 2))
+        strides.append(torch.full((h * w, 1), s, dtype=torch.float32, device=device))
+    return torch.cat(pts).to(dtype), torch.cat(strides).to(dtype)
 
 
 def feat_shapes_for(img_hw: Tuple[int, int], strides: Sequence[float]):

@@ -16,7 +16,10 @@ The program's spans, each with the benchmark's metric that reads it
 launches its layer's kernels, so a trace reader attributes every kernel (by
 its launch, correlation id to runtime call) to one span:
 
-* ``yst.h2d``: ``Predictor._forward``'s pageable copy; ``h2d_host_ms.deploy``;
+* ``yst.h2d``: ``Predictor._forward``'s way to the card: for a host batch on
+  a CUDA Predictor the host copy into a pinned buffer and the enqueue of
+  its copy on the side stream (``infer.py::PinnedRing``), else the plain
+  ``.to(device)``; ``h2d_host_ms.deploy``;
 * ``yst.normalize``: its cast and /255; ``normalize_ms.deploy``;
 * ``yst.model``: the network; ``model_ms.deploy``;
 * ``yst.select``: candidate selection and decode (``ops/decode.py``; YOLOX's
@@ -34,13 +37,18 @@ its launch, correlation id to runtime call) to one span:
   ``clip_adamw_ema``); the ``yst.train.h2d`` intervals count the steps.
 
 The program's counters (:func:`count`, read by :func:`counters` once after
-a traced window; ``nms_needed_pct.deploy`` reads both):
+a traced window; ``nms_needed_pct.deploy`` reads the first two,
+``h2d_staged_pct.deploy`` and ``h2d_slot_wait_pct.deploy`` the last two):
 
 * ``nms.pairs_needed``: the IoU tests greedy NMS needs, each kept pivot
   (the sweep's keep before the ``max_det`` cap) against every valid box
   after it, summed over the images the kernel path swept (``ops/decode.py``);
 * ``nms.pairs_swept``: the pairs the sweeps test, N(N-1)/2 an image, from
-  the launch geometry (``ops/nms_kernels.py``).
+  the launch geometry (``ops/nms_kernels.py``);
+* ``h2d.staged``: the batches ``PinnedRing`` staged (``infer.py``), one a
+  host batch on a CUDA Predictor;
+* ``h2d.slot_waits``: the times a staged batch found its pinned slot's
+  previous copy still running, and waited for it on the host.
 
 With no profiler recording, ``annotate`` and ``enabled`` are one flag test
 each and reach no dispatcher; callers guard a counter's computation with
