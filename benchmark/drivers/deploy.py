@@ -9,7 +9,9 @@ the loop once, which builds kernel #1 and warms every shape.
 The window submits pool batches in turn, keeping ``inflight`` batches in
 flight: a batch's packed (B, max_det, 7) output is fetched to the host when
 the next submission would pass that depth. It stops submitting after
-``--seconds`` and ends when the last result is on the host.
+``--seconds``, once every pool batch that the check samples has been
+submitted (a slow batch is late, not wrong; a 30 s window has long
+submitted the whole pool), and ends when the last result is on the host.
 
 * ``img_per_s``: images whose results reached the host over the window;
 * ``batch_ms_p95``: the 95th percentile over every batch of the time from
@@ -41,21 +43,11 @@ from benchmark.weights import generator, make_weights
 
 
 def program_model(cfg: Dict[str, Any], device):
-    """The program's model of a configuration, seeded by the benchmark."""
-    if cfg["family"] == "yolo11":
-        from yolo_scratch_tpu_torch.models.builder import YOLOModel
+    """The program's model of a configuration (``programs/<family>.py``),
+    its leaves not yet set: ``make_weights``' ``state_dict`` fills them."""
+    from benchmark import programs
 
-        with torch.device("meta"):
-            model = YOLOModel.from_config(cfg, ch=cfg["ch"], nc=cfg["nc"], scale=cfg["scale"])
-    elif cfg["family"] == "yolox":
-        from yolo_scratch_tpu_torch.models.yolox import YOLOXModel
-
-        with torch.device("meta"):
-            model = YOLOXModel(nc=cfg["nc"], depth=cfg["depth_multiple"],
-                               width=cfg["width_multiple"], in_ch=cfg["ch"])
-    else:
-        raise ValueError(f"no program model for family {cfg['family']!r}")
-    return model.to_empty(device=device)
+    return programs.family(cfg).model(cfg, device)
 
 
 def predictor_config(traffic: Dict[str, Any]):
@@ -121,7 +113,10 @@ class Deploy:
             lat.append(time.perf_counter() - t_sub)
             done += B
 
-        while (submitted < n_batches) if n_batches is not None else (time.perf_counter() < t_stop):
+        def open_():  # the window's seconds, and until each sampled batch was submitted once
+            return time.perf_counter() < t_stop or len(captured) < len(self.check_ids)
+
+        while (submitted < n_batches) if n_batches is not None else open_():
             j = submitted % len(self.pool)
             t_sub = time.perf_counter()
             out = self._call(self.pool[j], traced)
@@ -176,8 +171,9 @@ class Deploy:
                 return {"feat_err": float("inf"), "post_mismatch": float("inf")}
             out, feats = captured[j]
             x = torch.as_tensor(self.pool[j]).to(self.device)
-            errs.append(check.feat_err(feats, nets.feats_f32(ref, x)))
-            if len(feats) != len(self.cfg["strides"]) or feats[0].shape[0] != x.shape[0]:
+            want = nets.feats_f32(ref, x)
+            errs.append(check.feat_err(feats, want))
+            if len(feats) != len(want) or feats[0].shape[0] != x.shape[0]:
                 bad, rows = bad + 1, rows + 1
                 continue
             with nets.full_f32():

@@ -3,11 +3,12 @@
 Set-up makes seeded weights (``weights.py``) and loads them into the
 configuration's model, draws a pool of distinct batches of images and boxes
 into host memory (numpy, as the port's loader gives them), builds the
-program's train step (the YOLOX loss, f32 with TF32 off, clip + AdamW +
-EMA, per-leaf state, as ``train/trainer.py`` builds it; a constant learning
-rate) and drives it through its first three steps on three different
-batches. Those steps are the warm-up; the state after the first and the
-third is kept for the check. The same step object then runs the window.
+program's train step (``programs/<family>.py``'s ``train_step``; for YOLOX
+the YOLOX loss, f32 with TF32 off, clip + AdamW + EMA, per-leaf state, as
+``train/trainer.py`` builds it; a constant learning rate) and drives it
+through its first three steps on three different batches. Those steps are
+the warm-up; the state after the first and the third is kept for the check.
+The same step object then runs the window.
 
 The window calls the step on the next pool batch until ``--seconds`` have
 passed, then syncs. ``train_img_per_s``: images over the window's wall time.
@@ -15,8 +16,9 @@ A traced run records a CUDA event at each of ``TrainStep.on_phase``'s marks
 and runs under the profiler for at most ``trace_seconds``.
 
 The check, after the window and with the program's state freed: the plain
-reference (``reference/train.py``) takes the same weights and the same three
-batches through three steps. Each number is the worst over leaves of
+reference (the family's ``trainer``; ``reference/train.py`` for YOLOX)
+takes the same weights and the same three batches through three steps.
+Each number is the worst over leaves of
 ``| |P| - |R| | / max(|R|, median leaf |R|)``:
 
 * ``loss1_gap``: the first step's loss, ``|P - R| / |R|``. The later
@@ -40,9 +42,9 @@ from typing import Any, Dict, List
 
 import torch
 
+from benchmark import reference
 from benchmark.drivers.deploy import program_model
 from benchmark.reference import nets
-from benchmark.reference import train as ref_train
 from benchmark.traffic import scenes
 from benchmark.weights import generator, make_weights
 
@@ -51,21 +53,11 @@ PHASES = ("h2d", "forward", "loss", "backward", "clip_adamw_ema")
 
 
 def build_step(model, cfg: Dict[str, Any], precision: str | None = "highest"):
-    """(step, state) as the trainer builds them for a YOLOX model."""
-    from yolo_scratch_tpu_torch.losses.simota import YOLOXLossConfig
-    from yolo_scratch_tpu_torch.train.optim import AdamW
-    from yolo_scratch_tpu_torch.train.state import create_train_state
-    from yolo_scratch_tpu_torch.train.steps import build_train_step_custom, yolox_loss_adapter
+    """(step, state) as the trainer builds them: ``programs/<family>.py``'s
+    ``train_step``."""
+    from benchmark import programs
 
-    hp = cfg["train"]
-    loss = yolox_loss_adapter(YOLOXLossConfig(nc=cfg["nc"], strides=tuple(cfg["strides"]),
-                                              use_l1=bool(hp["l1_loss"])))
-    step = build_train_step_custom(model, loss, matmul_precision=precision)
-    tx = AdamW(learning_rate=hp["lr"], weight_decay=hp["weight_decay"],
-               clip_norm=hp["clip_norm"], b1=hp["betas"][0], b2=hp["betas"][1], eps=hp["eps"])
-    state = create_train_state(model, tx, use_ema=hp["ema"], ema_decay=hp["ema_decay"],
-                               ema_tau=hp["ema_tau"])
-    return step, state
+    return programs.family(cfg).train_step(model, cfg, precision)
 
 
 def _leaf_gap(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
@@ -159,7 +151,7 @@ class Train:
         ref = nets.build(self.cfg).to(self.device)
         ref.load_state_dict(self.weights)
         theta0 = {k: v.detach().clone() for k, v in ref.named_parameters()}
-        trainer = ref_train.Trainer(ref, self.cfg["train"], self.cfg["nc"])
+        trainer = reference.family(self.cfg).trainer(ref, self.cfg)
         losses, fgs, g1 = [], [], None
         with nets.full_f32():
             for i in range(STEPS_CHECKED):

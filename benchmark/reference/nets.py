@@ -1,6 +1,6 @@
 """Plain float32 detectors: YOLO11 (Ultralytics ``cfg/models/11/yolo11.yaml``
 with a Detect head of ``reg_max`` DFL bins) and YOLOX (arXiv 2107.08430:
-CSPDarknet, PAFPN, decoupled head).
+CSPDarknet, PAFPN, decoupled head), and the blocks they share.
 
 Plain ``torch.nn`` blocks, written from the published descriptions, with the
 submodule names of the program's state dict so that one set of seeded
@@ -9,7 +9,9 @@ does (the biased batch variance, ``r = (1 - m) r + m stat``); in eval mode
 it is the usual affine normalisation. Nothing is folded or fused here, and
 nothing of the measured program is imported.
 
-``build(config, ch, nc)`` reads a configuration file of ``benchmark/configs``.
+``build(cfg)`` dispatches on the configuration's ``family`` to
+``reference/<family>.py``'s ``build`` (``yolo11.py`` and ``yolox.py`` build
+the classes here); a new family's file may reuse these blocks.
 """
 
 from __future__ import annotations
@@ -379,13 +381,10 @@ class YOLOX(nn.Module):
 
 
 def build(cfg: Mapping[str, Any]) -> nn.Module:
-    """The plain model of a configuration file (its ``family``, ``ch``, ``nc``)."""
-    fam = cfg["family"]
-    if fam == "yolo11":
-        return YOLO11(cfg, cfg["ch"], cfg["nc"], cfg.get("reg_max", 16))
-    if fam == "yolox":
-        return YOLOX(cfg, cfg["ch"], cfg["nc"])
-    raise ValueError(f"no plain reference for family {fam!r}")
+    """The plain model of a configuration file: its family's ``build``."""
+    from . import family
+
+    return family(cfg).build(cfg)
 
 
 @contextlib.contextmanager

@@ -1,6 +1,12 @@
-"""Plain postprocess of a detector's maps: candidates, greedy NMS, and the
-packed (B, max_det, 7) rows [x1 y1 x2 y2 score label valid] with boxes
-normalised by the image side and clamped to [0, 1].
+"""Plain postprocess of a detector's maps into the packed (B, max_det, 7)
+rows [x1 y1 x2 y2 score label valid], boxes normalised by the image side and
+clamped to [0, 1].
+
+``postprocess`` dispatches on the configuration's ``family`` to
+``reference/<family>.py``'s ``postprocess``, which returns (packed, keep
+(B, K), valid (B, K)); K is 0 for a family without NMS. The NMS families
+here draw candidates and hand them to ``nms_and_pack`` (greedy NMS, then
+``pack``):
 
 * YOLO11 (DFL head): candidates ranked on the largest class logit in the
   maps' own dtype, ties to the lower anchor (the floats' total order,
@@ -139,16 +145,17 @@ def pack(boxes, scores, labels, keep, max_det: int, img_size: int) -> torch.Tens
     return out
 
 
-def postprocess(cfg, feats, traffic, dtype=torch.float32):
-    """Maps -> (packed (B, max_det, 7), keep before the cap (B, K), valid
-    (B, K)): the whole plain postprocess of a configuration's ``family``."""
-    conf, k = float(traffic["conf"]), int(traffic["pre_nms_topk"])
-    strides = cfg["strides"]
-    if cfg["family"] == "yolo11":
-        boxes, scores, labels, valid = yolo11_candidates(
-            feats, cfg["nc"], strides, cfg.get("reg_max", 16), conf, k, dtype)
-    else:
-        boxes, scores, labels, valid = yolox_candidates(feats, cfg["nc"], strides, conf, k, dtype)
+def nms_and_pack(boxes, scores, labels, valid, traffic):
+    """Greedy NMS over candidates in score order, then the packed rows:
+    (packed (B, max_det, 7), keep before the cap (B, K), valid (B, K))."""
     keep = greedy_keep(boxes, valid, float(traffic["iou"]))
     return pack(boxes, scores, labels, keep, int(traffic["max_det"]),
                 int(traffic["img_size"])), keep, valid
+
+
+def postprocess(cfg, feats, traffic, dtype=torch.float32):
+    """Maps -> (packed (B, max_det, 7), keep before the cap (B, K), valid
+    (B, K)): the whole plain postprocess of the configuration's family."""
+    from . import family
+
+    return family(cfg).postprocess(cfg, feats, traffic, dtype)

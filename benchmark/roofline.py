@@ -7,9 +7,12 @@ dense: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside them,
 prints the card's power limit beside its shares.
 
 ``forward_flops`` counts 2 FLOPs per multiply-add of every conv (every tap,
-the zero padding's included) and of each attention block's q.k and
-attn.v products, from the shapes one forward sees: the count of the
-port's ``bench/breakdown.py``, run here on the plain reference.
+the zero padding's included), every ``Linear``, every
+``MultiheadAttention`` and each attention block's q.k and attn.v products,
+from the shapes one forward sees, on the plain reference: the count of the
+port's ``bench/breakdown.py``, widened to the leaves a new family brings. A
+module with work of its own (area attention, deformable sampling) counts it
+in a ``flops(inputs, output)`` method.
 """
 
 from __future__ import annotations
@@ -30,27 +33,67 @@ NMS_OPS_PER_TEST = 14
 NMS_BYTES_IN, NMS_BYTES_OUT = 17, 1
 
 
+def _conv(m, args, kwargs, out) -> int:
+    kh, kw = m.kernel_size
+    return 2 * out.numel() * (m.in_channels // m.groups) * kh * kw
+
+
+def _linear(m, args, kwargs, out) -> int:
+    return 2 * out.numel() * m.in_features
+
+
+def _attn(m, args, kwargs, out) -> int:
+    B, _c, H, W = args[0].shape
+    n = H * W
+    return 2 * B * m.nh * n * n * (m.kd + m.hd)
+
+
+def _mha(m, args, kwargs, out) -> int:
+    """``nn.MultiheadAttention``: its four projections and its two products."""
+    q, k = (args[i] if len(args) > i else kwargs[n] for i, n in enumerate(("query", "key")))
+    seq = -2 if m.batch_first else 0
+    E, L, S = m.embed_dim, q.shape[seq], k.shape[seq]
+    N = q.numel() // (L * E)
+    S_attn = S + (m.bias_k is not None) + bool(m.add_zero_attn)
+    return 2 * N * (2 * L * E * E + S * (m.kdim + m.vdim) * E + 2 * L * S_attn * E)
+
+
+def _own_flops(m, args, kwargs, out) -> int:
+    return m.flops(args, out)
+
+
+def _counter(m):
+    """How a module's own work is counted, or None: its ``flops`` method
+    first, then the rules for ``Conv2d``, ``Linear``,
+    ``MultiheadAttention`` and attention blocks (any module with ``nh``,
+    ``kd`` and ``hd``: heads, key and head widths, over all H x W
+    positions)."""
+    if callable(getattr(m, "flops", None)):
+        return _own_flops
+    for kind, count in ((torch.nn.Conv2d, _conv), (torch.nn.Linear, _linear),
+                        (torch.nn.MultiheadAttention, _mha)):
+        if isinstance(m, kind):
+            return count
+    if all(hasattr(m, a) for a in ("nh", "kd", "hd")):
+        return _attn
+    return None
+
+
 def forward_flops(model: torch.nn.Module, x: torch.Tensor) -> int:
-    """FLOPs of one ``model(x)`` (2 per multiply-add of every conv and of
-    each attention block's two products). An attention block is any module
-    with ``nh``, ``kd`` and ``hd`` (heads, key and head widths)."""
+    """FLOPs of one ``model(x)``, 2 per multiply-add: each module's own work
+    (``_counter``). A module's ``flops(inputs, output) -> int`` counts its
+    own products, not those of its child modules, which count themselves."""
     total = 0
 
-    def conv(m, _, out):
-        nonlocal total
-        kh, kw = m.kernel_size
-        total += 2 * out.numel() * (m.in_channels // m.groups) * kh * kw
+    def hook(count):
+        def add(m, args, kwargs, out):
+            nonlocal total
+            total += int(count(m, args, kwargs, out))
 
-    def attn(m, inp, _):
-        nonlocal total
-        B, _c, H, W = inp[0].shape
-        n = H * W
-        total += 2 * B * m.nh * n * n * (m.kd + m.hd)
+        return add
 
-    hooks = [m.register_forward_hook(conv) for m in model.modules()
-             if isinstance(m, torch.nn.Conv2d)]
-    hooks += [m.register_forward_hook(attn) for m in model.modules()
-              if all(hasattr(m, a) for a in ("nh", "kd", "hd"))]
+    hooks = [m.register_forward_hook(hook(count), with_kwargs=True)
+             for m in model.modules() if (count := _counter(m)) is not None]
     try:
         was = model.training
         model.eval()

@@ -4,8 +4,8 @@
 and the metrics. Everything else lives in files of its own under
 ``benchmark/``, found by the names there:
 
-* ``configs/<config>.json``: a configuration's sizes (``family`` names its
-  plain reference in ``reference/nets.py``);
+* ``configs/<config>.json``: a configuration's sizes; its ``family`` names
+  the two family files below;
 * ``traffic/<traffic>.json``: a traffic mix, the parameters that the
   ``driver`` it names (``drivers/<driver>.py``) and the scene generator
   (``traffic/scenes.py``) read;
@@ -13,8 +13,40 @@ and the metrics. Everything else lives in files of its own under
   the readings each was set from;
 * ``metrics/<metric>.py``: one per-layer metric's reader.
 
-Adding a configuration, a traffic mix, a cell or a metric adds files and
-entries; no file here changes.
+A family (a Python name) is two files, and everything that differs between
+families goes through them:
+
+* ``reference/<family>.py``, plain ``torch`` that imports nothing of the
+  program (it may reuse ``reference/nets.py``'s blocks and
+  ``reference/post.py``'s functions by relative import):
+
+  - ``build(cfg)``: the plain model; NHWC images in [0, 1] in, a list of
+    (B, ..., C) outputs out, the tensors ``check.feat_err`` compares with
+    the program's model's outputs;
+  - ``postprocess(cfg, maps, traffic, dtype=torch.float32)``: (packed
+    (B, max_det, 7), keep (B, K), valid (B, K)) with K = 0 for a family
+    without NMS (``roofline.nms_tests`` then counts 0);
+  - ``trainer(model, cfg)``, for a family with train cells: the plain step,
+    an object with ``step(batch) -> (loss, clipped gradients by name,
+    foreground per image)`` and ``ema`` by name;
+  - optionally ``seed_leaves_(model, gen)``: leaves that need a distribution
+    other than ``weights.py``'s rules.
+
+* ``programs/<family>.py``, which may import the program:
+
+  - ``model(cfg, device)``: the program's model, built on ``meta`` and
+    moved with ``to_empty``; ``weights.make_weights``' ``state_dict``
+    loads into it;
+  - optionally ``train_step(model, cfg, precision)``: (step, state) as the
+    program's trainer builds them.
+
+``reference.family`` and ``programs.family`` resolve them; a family that
+lacks either file fails with one message naming both. ``forward_flops``
+counts convs, ``Linear``, ``MultiheadAttention`` and attention blocks by
+shape, and any module's own work through its ``flops(inputs, output)``.
+
+Adding a configuration, a family, a traffic mix, a cell or a metric adds
+files and entries; no file here changes.
 """
 
 from __future__ import annotations

@@ -23,16 +23,26 @@ def top_level_imports(path):
     return out
 
 
+def relative_import_levels(path):
+    return {node.level for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.ImportFrom) and node.level > 0}
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     for path in BENCH.rglob("*.py"):
         assert not top_level_imports(path) & FORBIDDEN, path
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """The reference's files import torch, numpy, the standard library's
+    plain modules and each other (relative imports that stay inside
+    ``reference/``): nothing of the program and nothing of ``programs/``."""
     for path in (BENCH / "reference").rglob("*.py"):
         assert "yolo_scratch_tpu_torch" not in top_level_imports(path), path
-        assert top_level_imports(path) <= {"__future__", "contextlib", "math", "typing",
-                                           "numpy", "torch"}, path
+        assert top_level_imports(path) <= {"__future__", "contextlib", "importlib", "math",
+                                           "pathlib", "types", "typing", "numpy",
+                                           "torch"}, path
+        assert relative_import_levels(path) <= {1}, path
 
 
 def test_names_compare_whole(monkeypatch):

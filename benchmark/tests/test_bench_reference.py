@@ -45,11 +45,27 @@ def test_forward_matches_the_port(config):
     assert float(check.feat_err(p, r).max()) < 1e-5
 
 
+def _port_yolo11(cfg, prog, feats, common):
+    from yolo_scratch_tpu_torch.ops.decode import postprocess_from_feats
+
+    return postprocess_from_feats(feats, nc=cfg["nc"], strides=prog.strides, reg_max=16, **common)
+
+
+def _port_yolox(cfg, prog, feats, common):
+    from yolo_scratch_tpu_torch.models.yolox import yolox_eval_decode
+    from yolo_scratch_tpu_torch.ops.decode import postprocess
+
+    return postprocess(yolox_eval_decode([f.float() for f in feats], cfg["nc"], prog.strides),
+                       **common)
+
+
+#: the port's postprocess of each configuration's maps
+PORT_POST = {"yolo11n-crater": _port_yolo11, "yolox-s-coco": _port_yolox}
+
+
 @pytest.mark.parametrize("config", sorted(CELLS))
 def test_postprocess_matches_the_port(config):
     from yolo_scratch_tpu_torch.host import pack_detections
-    from yolo_scratch_tpu_torch.models.yolox import yolox_eval_decode
-    from yolo_scratch_tpu_torch.ops.decode import postprocess, postprocess_from_feats
 
     cfg, traffic, ref, prog, x = setup(config)
     prog.eval()
@@ -58,13 +74,7 @@ def test_postprocess_matches_the_port(config):
     common = dict(img_size=traffic["img_size"], conf_threshold=traffic["conf"],
                   iou_threshold=traffic["iou"], max_det=traffic["max_det"],
                   pre_nms_topk=traffic["pre_nms_topk"], nms_impl="kernel")
-    if cfg["family"] == "yolo11":
-        dets = postprocess_from_feats(feats, nc=cfg["nc"], strides=prog.strides, reg_max=16,
-                                      **common)
-    else:
-        dets = postprocess(yolox_eval_decode([f.float() for f in feats], cfg["nc"],
-                                             prog.strides), **common)
-    packed_p = pack_detections(*dets)
+    packed_p = pack_detections(*PORT_POST[config](cfg, prog, feats, common))
     packed_r, keep, valid = post.postprocess(cfg, [f.float() for f in feats], traffic)
     bad, rows = check.post_mismatch(packed_p, packed_r)
     assert rows > 20 and bad == 0

@@ -25,6 +25,20 @@ def test_forward_flops_match_the_flop_counter(config):
     assert abs(ours / theirs - 1) < 1e-3, (ours, theirs)
 
 
+#: forward FLOPs an image at 640, as counted before ``Linear``,
+#: ``MultiheadAttention`` and ``flops`` methods had rules (PERF.md's counts)
+FLOPS_640 = {"yolo11n-crater": 8_220_416_000, "yolox-s-coco": 26_685_542_400}
+
+
+@pytest.mark.parametrize("config", sorted(FLOPS_640))
+def test_forward_flops_at_640_are_the_earlier_count(config):
+    cfg = Spec().config(config)
+    with torch.device("meta"):  # shapes are all the count reads
+        model = nets.build(cfg)
+    x = torch.zeros(1, 640, 640, cfg["ch"], device="meta")
+    assert roofline.forward_flops(model, x) == FLOPS_640[config]
+
+
 def test_nms_tests_hand_worked():
     # four score-sorted boxes, all valid; 0 kept (3 valid after it), 1
     # suppressed, 2 kept (1 after), 3 kept (none after): 4 tests

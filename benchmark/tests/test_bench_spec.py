@@ -1,13 +1,18 @@
 """BENCHMARK.json against the contract's shape, and every file it names
-found by name; a new configuration, mix, cell and metric are picked up from
-new files and entries alone."""
+found by name; a new configuration, mix, cell, metric and model family are
+picked up from new files and entries alone."""
 
+import hashlib
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
+from benchmark import programs, reference
 from benchmark.spec import ROOT, Spec, reader
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -70,7 +75,12 @@ def test_each_cell_finds_its_files(cell):
     spec = Spec()
     c = spec.cell(cell)
     cfg, traffic, limits = spec.config(c["config"]), spec.traffic(c["traffic"]), spec.limits(cell)
-    assert cfg["family"] in ("yolo11", "yolox") and traffic["driver"] in ("deploy", "train")
+    ref, prog = reference.family(cfg), programs.family(cfg)
+    assert callable(ref.build) and callable(ref.postprocess) and callable(prog.model)
+    if traffic["driver"] == "train":
+        assert callable(ref.trainer) and callable(prog.train_step)
+    else:
+        assert traffic["driver"] == "deploy"
     assert limits and all(v > 0 for v in limits.values())
     for m in spec.metrics_for(cell, "per_layer"):
         assert callable(reader(m["name"]).read)
@@ -114,3 +124,69 @@ def test_new_files_are_picked_up_without_an_edit(tmp_path):
     # a metric without a workloads list reaches every cell reporting its moved metric
     assert "batches.deploy" in [m["name"] for m in
                                 spec.metrics_for("yolo11n-crater.deploy-b128", "per_layer")]
+
+
+def test_a_family_without_its_files_fails_naming_both():
+    for fam in ("nosuch", "nets"):
+        with pytest.raises(LookupError) as e:
+            reference.family({"family": fam})
+        assert f"benchmark/reference/{fam}.py" in str(e.value)
+        assert f"benchmark/programs/{fam}.py" in str(e.value)
+        with pytest.raises(LookupError, match=f"benchmark/programs/{fam}.py"):
+            programs.family({"family": fam})
+
+
+def _digests(root):
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_new_family_joins_through_new_files(tmp_path):
+    """A family the harness has never seen (``tests/toy/``: an NMS-free
+    detector with a ``Linear``, a ``LayerNorm``, a ``MultiheadAttention``,
+    bare parameters and a module counting its own FLOPs) joins a copy of the
+    benchmark through new files and new entries alone; a small CPU run of
+    its cell through a stand-in predictor comes out correct, and its FLOPs
+    are ``FlopCounterMode``'s."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "benchmark", root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root)
+    before = _digests(root)
+    toy = ROOT / "benchmark/tests/toy"
+    b = root / "benchmark"
+    shutil.copy(toy / "reference.py", b / "reference/toy.py")
+    shutil.copy(toy / "program.py", b / "programs/toy.py")
+    shutil.copy(toy / "config.json", b / "configs/toy-det.json")
+    shutil.copy(toy / "limits.json", b / "workloads/toy-det.deploy-b32.json")
+    d = json.loads((root / "BENCHMARK.json").read_text())
+    old = json.loads(json.dumps(d))
+    d["configs"].append({"name": "toy-det", "source": "x", "why": "x", "reduced": [],
+                         "file": "benchmark/configs/toy-det.json"})
+    d["workloads"].append({"name": "toy-det.deploy-b32", "config": "toy-det",
+                           "traffic": "deploy-b32", "chips": 1, "why": "x"})
+    for m in d["end_to_end"] + d["per_layer"]:
+        if "yolox-s-coco.deploy-b32" in m.get("workloads", []):
+            m["workloads"].append("toy-det.deploy-b32")
+    (root / "BENCHMARK.json").write_text(json.dumps(d))
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "benchmark/tests/toy/drive.py"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["line"]["correct"] is True, out.stderr[-4000:]
+    assert res["line"]["check"]["post_mismatch"]["value"] == 0.0
+    assert res["flops"] == res["flop_counter"] > 0
+    # the run counted the same FLOPs at the traffic's image side (64 in the small run)
+    assert res["flops_per_image"] == res["flops"]
+    # no file that was there changed; BENCHMARK.json only gained entries
+    after = _digests(root)
+    assert {k: after[k] for k in before if k.name != "BENCHMARK.json"} == \
+        {k: v for k, v in before.items() if k.name != "BENCHMARK.json"}
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        for was, now in zip(old[key], d[key]):
+            assert {k: v for k, v in now.items() if k != "workloads"} == \
+                {k: v for k, v in was.items() if k != "workloads"}
+            assert now.get("workloads", [])[:len(was.get("workloads", []))] == \
+                was.get("workloads", [])
